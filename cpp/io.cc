@@ -1,6 +1,6 @@
 // Native image I/O for opengpc_tpu (libpng-backed).
 //
-// Host-side runtime component: fast PNG decode/encode feeding the TPU
+// Host-side runtime component: fast PNG decode/encode feeding the device
 // pipeline, the counterpart of the reference's native PNG layer
 // (/root/reference/lib/gpc/buffer.hpp:197-474).  Exposed through a plain
 // C ABI and loaded from Python via ctypes (opengpc_tpu/io/png.py).

@@ -25,7 +25,7 @@ Checks, per dataset:
          the reference binary is built
 
 Exit code 0 iff every hard check passes.  CPU-only by default (exactness
-is device-independent); run on TPU for speed on full sweeps.
+is device-independent); run on the GPU for speed on full sweeps.
 """
 
 import argparse

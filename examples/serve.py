@@ -1,7 +1,7 @@
 """Minimal AOT serving loop: freeze the matcher once, then serve a
 directory of frame pairs with ZERO Python re-tracing per frame.
 
-This is the TPU-native analog of deploying the reference's compiled
+This is the analog of deploying the reference's compiled
 sparsematch binary (/root/reference/samples/sparsematch.cpp): the forest,
 settings, frame shape and output contract are burned into one StableHLO
 artifact at export time; the serving side needs only jax + the artifact.
@@ -49,7 +49,9 @@ def main(argv=None) -> int:
     from opengpc_tpu.forest import load_forest
     from opengpc_tpu.io.png import read_gray, write_png
     from opengpc_tpu.io.supports import write_supports
+    from opengpc_tpu.utils.device import start
 
+    start()
     lefts = sorted(f for f in os.listdir(args.left_dir)
                    if f.endswith(".png"))
     rights = sorted(f for f in os.listdir(args.right_dir)
@@ -79,8 +81,7 @@ def main(argv=None) -> int:
         blob = aot.export_sparsematch(load_forest(args.forest), settings,
                                       probe.shape, contract=args.contract)
         aot.save_artifact(art, blob, contract=args.contract,
-                          settings=settings, shape=probe.shape,
-                          use_pallas=aot.resolve_use_pallas())
+                          settings=settings, shape=probe.shape)
         print(f"exported {art} ({os.path.getsize(art)} B) "
               f"in {time.perf_counter() - t0:.1f} s")
 

@@ -1,12 +1,12 @@
-"""opengpc_tpu — a TPU-native Global Patch Collider framework.
+"""opengpc_tpu — a data-parallel Global Patch Collider framework.
 
-A from-scratch JAX/XLA/Pallas reimplementation of the capabilities of
+A from-scratch JAX/XLA reimplementation of the capabilities of
 bamert/openGPC (sparse stereo/flow correspondence via learned fern
-forests), designed TPU-first:
+forests), designed for an accelerator:
 
 * dense masked compute instead of index-list sparsity,
-* one fused preprocessing + leaf-code kernel (Pallas) instead of SSE
-  intrinsics,
+* one key-image stencil (box + sobel + shifted compares) that XLA fuses,
+  instead of SSE intrinsics,
 * sort + segmented unique-collision matching instead of hash tables,
 * ``vmap`` over stereo pairs and ``shard_map`` over device meshes instead
   of ``std::thread`` row partitioning,

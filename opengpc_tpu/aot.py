@@ -5,8 +5,8 @@ StableHLO artifact.
 (preprocess + codes + matcher + output contract) and serializes the
 resulting StableHLO module; a serving process deserializes and calls it
 with zero Python re-tracing — only jax and the artifact are needed, not
-this package or the forest file.  This is the TPU-native analog of
-shipping the reference's compiled sparsematch binary
+this package or the forest file.  This is the analog of shipping the
+reference's compiled sparsematch binary
 (/root/reference/samples/sparsematch.cpp, built once per deployment):
 the forest, settings, frame shape, and output contract are burned in at
 export time, and the PJRT runtime executes the module on any matching
@@ -17,9 +17,13 @@ contract and the decode parameters, so a generic server can route the
 device outputs to the right host-side decoder
 (``masked_supports_to_numpy`` & co — which remain ordinary host code).
 
-Exporting the Pallas kernel path targets TPU only (Mosaic custom calls
-do not lower for CPU); the jnp path can target several platforms in one
-artifact (``platforms=("cpu", "tpu")``).
+The exported module itself is written by ``_serialize`` in a container that
+needs nothing beyond jax: ``jax.export``'s own ``serialize()`` needs the
+``flatbuffers`` package, which a serving host may lack.  Blobs in the
+``jax.export`` format still load where ``flatbuffers`` is installed.
+
+One artifact can target several platforms (``platforms=("cpu",
+"cuda")``; JAX names the NVIDIA GPU export target ``cuda``).
 """
 
 from __future__ import annotations
@@ -38,15 +42,119 @@ CONTRACTS = ("flat", "rows", "masked", "masked-compact", "global-rows",
              "global-compact", "pyramid", "pyramid-compact")
 
 _MAGIC = b"OGPCAOT1"
+_BLOB_MAGIC = b"OGPCXLA1"
 
-# Mosaic kernels lower to this custom-call target; exporting them is safe
-# (the serving backend carries the Mosaic runtime) but jax.export wants
-# the acknowledgement to be explicit.
-_MOSAIC_TARGET = "tpu_custom_call"
+
+def _skeleton(treedef):
+    """JSON form of a pytree structure (tuples, lists, dicts, None; 0 for
+    each leaf)."""
+    import jax
+
+    def enc(x):
+        if isinstance(x, tuple):
+            return {"t": [enc(v) for v in x]}
+        if isinstance(x, list):
+            return {"l": [enc(v) for v in x]}
+        if isinstance(x, dict):
+            return {"d": [[k, enc(v)] for k, v in x.items()]}
+        if x is None:
+            return {"n": 0}
+        return 0
+
+    return enc(jax.tree_util.tree_unflatten(treedef,
+                                            [0] * treedef.num_leaves))
+
+
+def _from_skeleton(obj):
+    import jax
+
+    def dec(x):
+        if not isinstance(x, dict):
+            return 0
+        (kind, v), = x.items()
+        if kind == "t":
+            return tuple(dec(e) for e in v)
+        if kind == "l":
+            return [dec(e) for e in v]
+        if kind == "d":
+            return {k: dec(e) for k, e in v}
+        return None
+
+    return jax.tree_util.tree_structure(dec(obj))
+
+
+def _serialize(exp) -> bytes:
+    """``jax.export.Exported`` -> bytes without ``flatbuffers``: a JSON
+    header with the fields this repo's exports use, then the StableHLO
+    module.  Argument shardings, effects and disabled safety checks are
+    never used here and are refused rather than dropped."""
+    if (any(s is not None for s in exp.in_shardings_hlo
+            + exp.out_shardings_hlo)
+            or exp.ordered_effects or exp.unordered_effects
+            or exp.disabled_safety_checks):
+        raise ValueError("module uses argument shardings, effects or "
+                         "disabled safety checks; not supported by the "
+                         "artifact container")
+    head = json.dumps({
+        "fun_name": exp.fun_name,
+        "in_tree": _skeleton(exp.in_tree),
+        "out_tree": _skeleton(exp.out_tree),
+        "in_avals": [[list(a.shape), str(a.dtype)] for a in exp.in_avals],
+        "out_avals": [[list(a.shape), str(a.dtype)] for a in exp.out_avals],
+        "nr_devices": exp.nr_devices,
+        "platforms": list(exp.platforms),
+        "calling_convention_version": exp.calling_convention_version,
+        "module_kept_var_idx": list(exp.module_kept_var_idx),
+        "uses_global_constants": exp.uses_global_constants,
+    }).encode()
+    return (_BLOB_MAGIC + struct.pack("<I", len(head)) + head
+            + exp.mlir_module_serialized)
+
+
+def _deserialize(data: bytes):
+    """Inverse of :func:`_serialize`; blobs in ``jax.export``'s own format
+    go to ``jax.export.deserialize``."""
+    import jax
+    from jax import export as jexport
+
+    data = bytes(data)
+    if not data.startswith(_BLOB_MAGIC):
+        return jexport.deserialize(bytearray(data))
+    (hlen,) = struct.unpack_from("<I", data, len(_BLOB_MAGIC))
+    start = len(_BLOB_MAGIC) + 4
+    h = json.loads(data[start:start + hlen].decode())
+
+    def avals(rows):
+        return tuple(jax.core.ShapedArray(tuple(shape), np.dtype(dt))
+                     for shape, dt in rows)
+
+    n_in, n_out = len(h["in_avals"]), len(h["out_avals"])
+    return jexport.Exported(
+        fun_name=h["fun_name"],
+        in_tree=_from_skeleton(h["in_tree"]),
+        in_avals=avals(h["in_avals"]),
+        out_tree=_from_skeleton(h["out_tree"]),
+        out_avals=avals(h["out_avals"]),
+        _has_named_shardings=True,
+        _in_named_shardings=(None,) * n_in,
+        _out_named_shardings=(None,) * n_out,
+        in_shardings_hlo=(None,) * n_in,
+        out_shardings_hlo=(None,) * n_out,
+        nr_devices=h["nr_devices"],
+        platforms=tuple(h["platforms"]),
+        ordered_effects=(),
+        unordered_effects=(),
+        disabled_safety_checks=(),
+        mlir_module_serialized=data[start + hlen:],
+        calling_convention_version=h["calling_convention_version"],
+        module_kept_var_idx=tuple(h["module_kept_var_idx"]),
+        uses_global_constants=h["uses_global_constants"],
+        _get_vjp=None,
+    )
 
 
 def _impl_for(contract: str, mask, settings: InferenceSettings,
-              shape, use_pallas: bool, num_levels: int = 3) -> Callable:
+              shape, num_levels: int = 3) -> Callable:
     """Resolve the jit-able impl for ``contract``, validating eligibility
     for ``shape`` the same way the build_* constructors do.
     ``num_levels`` applies to the pyramid contracts only."""
@@ -62,7 +170,7 @@ def _impl_for(contract: str, mask, settings: InferenceSettings,
         raise ValueError(f"contract must be one of {CONTRACTS}, "
                          f"got {contract!r}")
     if contract in ("pyramid", "pyramid-compact"):
-        from opengpc_tpu.pyramid import (_pack_params, _pyramid_compact_impl,
+        from opengpc_tpu.pyramid import (_pyramid_compact_impl,
                                          _pyramid_impl, _rows_eligible)
 
         if contract == "pyramid":
@@ -71,7 +179,7 @@ def _impl_for(contract: str, mask, settings: InferenceSettings,
             # freeze fine (same output contract)
             return functools.partial(
                 _pyramid_impl, mask=mask, settings=settings,
-                num_levels=num_levels, use_pallas=use_pallas, dedup=True)
+                num_levels=num_levels, dedup=True)
         el = _rows_eligible(mask, settings, shape[0], shape[1], num_levels)
         if el is None or settings.disp_high < 1:
             raise ValueError(
@@ -82,11 +190,10 @@ def _impl_for(contract: str, mask, settings: InferenceSettings,
         mult, nbd = el
         return functools.partial(
             _pyramid_compact_impl, mask=mask, settings=settings,
-            num_levels=num_levels, use_pallas=use_pallas, mult=mult,
-            nbd=nbd, chunk=None, k=None)
+            num_levels=num_levels, mult=mult, nbd=nbd, chunk=None, k=None)
     if contract == "flat":
         return functools.partial(_sparsematch_impl, mask=mask,
-                                 settings=settings, use_pallas=use_pallas)
+                                 settings=settings)
     if contract in ("global-rows", "global-compact"):
         if settings.epipolar_mode:
             raise ValueError(f"contract {contract!r} needs "
@@ -97,10 +204,9 @@ def _impl_for(contract: str, mask, settings: InferenceSettings,
         if contract == "global-compact":
             return functools.partial(_sparsematch_global_compact_impl,
                                      mask=mask, settings=settings,
-                                     use_pallas=use_pallas, chunk=None,
-                                     k=None)
+                                     chunk=None, k=None)
         return functools.partial(_sparsematch_global_rows_impl, mask=mask,
-                                 settings=settings, use_pallas=use_pallas)
+                                 settings=settings)
     if not _rows_ok(mask, shape, settings):
         raise ValueError(f"contract {contract!r} needs epipolar mode, a "
                          f"<=30-test forest and packable (x, d) keys for "
@@ -108,37 +214,22 @@ def _impl_for(contract: str, mask, settings: InferenceSettings,
     if contract == "masked-compact":
         return functools.partial(_sparsematch_masked_compact_impl,
                                  mask=mask, settings=settings,
-                                 use_pallas=use_pallas, chunk=None, k=None)
+                                 chunk=None, k=None)
     impl = {"rows": _sparsematch_rows_impl,
             "masked": _sparsematch_masked_impl}[contract]
-    return functools.partial(impl, mask=mask, settings=settings,
-                             use_pallas=use_pallas)
-
-
-def resolve_use_pallas(platforms: Optional[Sequence[str]] = None) -> bool:
-    """The auto rule for the Pallas kernel path: on exactly when every
-    lowering target is TPU (``platforms`` empty means the current
-    backend).  Exposed so callers that record artifact metadata
-    (cli.aot) apply the SAME resolution the export itself did."""
-    import jax
-
-    targets = tuple(platforms) if platforms else (jax.default_backend(),)
-    return all(p == "tpu" for p in targets)
+    return functools.partial(impl, mask=mask, settings=settings)
 
 
 def export_sparsematch(forest_or_mask, settings: InferenceSettings,
                        shape: Tuple[int, int], contract: str = "masked",
-                       use_pallas: Optional[bool] = None,
                        platforms: Optional[Sequence[str]] = None,
                        num_levels: int = 3) -> bytes:
     """Serialize the full matcher pipeline for one (H, W) frame shape.
 
-    Returns the raw ``jax.export`` blob (no container header — see
-    ``save_artifact`` for the self-describing file format).  ``platforms``
-    defaults to the current backend; pass ``("cpu", "tpu")`` for one
-    multi-platform jnp artifact.  ``use_pallas=None`` selects the Pallas
-    kernel path exactly when every target platform is TPU
-    (``resolve_use_pallas``).  ``num_levels`` applies to the pyramid
+    Returns the serialized module (``_serialize``; no artifact header —
+    see ``save_artifact`` for the self-describing file format).  ``platforms``
+    defaults to the current backend; pass ``("cpu", "cuda")`` for one
+    multi-platform artifact.  ``num_levels`` applies to the pyramid
     contracts (burned into the module like everything else).
     """
     import jax
@@ -147,20 +238,10 @@ def export_sparsematch(forest_or_mask, settings: InferenceSettings,
     mask = (make_filter_mask(forest_or_mask)
             if isinstance(forest_or_mask, Forest) else forest_or_mask)
     plats = tuple(platforms) if platforms else None
-    if use_pallas is None:
-        use_pallas = resolve_use_pallas(plats)
-    if use_pallas and plats and any(p != "tpu" for p in plats):
-        raise ValueError("the Pallas kernel path lowers for TPU only; "
-                         "use use_pallas=False for multi-platform "
-                         f"artifacts (got platforms={plats})")
-    fn = jax.jit(_impl_for(contract, mask, settings, shape, use_pallas,
+    fn = jax.jit(_impl_for(contract, mask, settings, shape,
                            num_levels=num_levels))
     spec = jax.ShapeDtypeStruct(tuple(shape), np.uint8)
-    disabled = ([jexport.DisabledSafetyCheck.custom_call(_MOSAIC_TARGET)]
-                if use_pallas else [])
-    exp = jexport.export(fn, platforms=plats,
-                         disabled_checks=disabled)(spec, spec)
-    return bytes(exp.serialize())
+    return _serialize(jexport.export(fn, platforms=plats)(spec, spec))
 
 
 def load_sparsematch(data: bytes) -> Callable:
@@ -168,19 +249,17 @@ def load_sparsematch(data: bytes) -> Callable:
     ``(left, right) -> device outputs`` (layout per the exported
     contract).  Needs only jax — no forest file, no re-trace."""
     import jax
-    from jax import export as jexport
 
-    return jax.jit(jexport.deserialize(bytearray(data)).call)
+    return jax.jit(_deserialize(data).call)
 
 
 def export_sharded_frame(forest_or_mask, settings: InferenceSettings,
                          shape: Tuple[int, int], mesh,
                          contract: str = "masked",
-                         use_pallas: Optional[bool] = None,
                          num_levels: int = 3) -> bytes:
     """Serialize the SINGLE-FRAME multi-chip matcher
     (parallel.build_sharded_frame_sparsematch: one pair's rows over the
-    mesh with a 14-row ppermute halo) — pod-scale serving from one
+    mesh with a 14-row ppermute halo) — multi-device serving from one
     artifact.  ``contract="pyramid"`` freezes the sharded multi-scale
     matcher instead (parallel.build_sharded_frame_pyramid, ``num_levels``
     levels; H must divide by mesh_size * 2^(levels-1)).  The module pins
@@ -194,16 +273,12 @@ def export_sharded_frame(forest_or_mask, settings: InferenceSettings,
 
     if contract == "pyramid":
         fn = build_sharded_frame_pyramid(forest_or_mask, settings, mesh,
-                                         num_levels=num_levels,
-                                         use_pallas=use_pallas)
+                                         num_levels=num_levels)
     else:
         fn = build_sharded_frame_sparsematch(forest_or_mask, settings, mesh,
-                                             use_pallas=use_pallas,
                                              contract=contract)
     spec = jax.ShapeDtypeStruct(tuple(shape), np.uint8)
-    disabled = [jexport.DisabledSafetyCheck.custom_call(_MOSAIC_TARGET)]
-    exp = jexport.export(fn, disabled_checks=disabled)(spec, spec)
-    return bytes(exp.serialize())
+    return _serialize(jexport.export(fn)(spec, spec))
 
 
 def load_sharded_frame(data: bytes, mesh=None) -> Callable:
@@ -214,13 +289,12 @@ def load_sharded_frame(data: bytes, mesh=None) -> Callable:
     the exported device count exactly.  Inputs are row-sharded over the
     mesh by the returned jitted callable."""
     import jax
-    from jax import export as jexport
     from jax.sharding import NamedSharding
     from jax.sharding import PartitionSpec as P
 
     from opengpc_tpu.parallel import DATA_AXIS, make_mesh
 
-    exp = jexport.deserialize(bytearray(data))
+    exp = _deserialize(data)
     want = getattr(exp, "nr_devices", None)
     if mesh is None:
         devs = jax.devices()
@@ -240,7 +314,6 @@ def export_batched_sharded_frame(forest_or_mask,
                                  settings: InferenceSettings,
                                  batch: int, shape: Tuple[int, int], mesh,
                                  contract: str = "masked",
-                                 use_pallas: Optional[bool] = None,
                                  num_levels: int = 3) -> bytes:
     """Serialize the COMPOSED 2-D matcher
     (parallel.build_batched_sharded_frame_sparsematch: a (batch, H, W)
@@ -261,16 +334,12 @@ def export_batched_sharded_frame(forest_or_mask,
 
     if contract == "pyramid":
         fn = build_batched_sharded_frame_pyramid(
-            forest_or_mask, settings, mesh, num_levels=num_levels,
-            use_pallas=use_pallas)
+            forest_or_mask, settings, mesh, num_levels=num_levels)
     else:
         fn = build_batched_sharded_frame_sparsematch(
-            forest_or_mask, settings, mesh, use_pallas=use_pallas,
-            contract=contract)
+            forest_or_mask, settings, mesh, contract=contract)
     spec = jax.ShapeDtypeStruct((batch,) + tuple(shape), np.uint8)
-    disabled = [jexport.DisabledSafetyCheck.custom_call(_MOSAIC_TARGET)]
-    exp = jexport.export(fn, disabled_checks=disabled)(spec, spec)
-    return bytes(exp.serialize())
+    return _serialize(jexport.export(fn)(spec, spec))
 
 
 def load_batched_sharded_frame(data: bytes, mesh_shape: Tuple[int, int],
@@ -279,13 +348,12 @@ def load_batched_sharded_frame(data: bytes, mesh_shape: Tuple[int, int],
     mesh of the exported ("data", "rows") shape (default: ``make_mesh_2d``
     over the first D*R visible devices)."""
     import jax
-    from jax import export as jexport
     from jax.sharding import NamedSharding
     from jax.sharding import PartitionSpec as P
 
     from opengpc_tpu.parallel import DATA_AXIS, ROWS_AXIS, make_mesh_2d
 
-    exp = jexport.deserialize(bytearray(data))
+    exp = _deserialize(data)
     d, r = mesh_shape
     if mesh is None:
         mesh = make_mesh_2d(d, r)
@@ -306,7 +374,6 @@ def load_batched_sharded_frame(data: bytes, mesh_shape: Tuple[int, int],
 def save_artifact(path: str, blob: bytes, *, contract: str,
                   settings: InferenceSettings, shape: Tuple[int, int],
                   platforms: Optional[Sequence[str]] = None,
-                  use_pallas: bool = False,
                   extra: Optional[dict] = None) -> None:
     """Write a self-describing artifact file: magic, JSON metadata (the
     decode parameters a generic server needs), then the export blob.
@@ -321,7 +388,6 @@ def save_artifact(path: str, blob: bytes, *, contract: str,
         "gradient_threshold": settings.gradient_threshold,
         "vertical_tolerance": settings.vertical_tolerance,
         "platforms": list(platforms) if platforms else None,
-        "use_pallas": use_pallas,
     }
     if extra:
         meta.update(extra)

@@ -2,7 +2,7 @@
 
 ``export`` freezes forest + settings + frame shape + output contract into
 one self-describing StableHLO artifact (see opengpc_tpu.aot) — the
-TPU-native analog of building the reference's sparsematch binary once per
+analog of building the reference's sparsematch binary once per
 deployment (/root/reference/samples/sparsematch.cpp).  ``run`` is the
 serving side: deserialize, execute, decode, write supports — no forest
 file, no pipeline re-trace.
@@ -25,6 +25,7 @@ from opengpc_tpu.aot import (CONTRACTS, decode_outputs, export_sparsematch,
                              load_artifact, save_artifact)
 from opengpc_tpu.config import InferenceSettings
 from opengpc_tpu.cli._errors import report_input_errors
+from opengpc_tpu.utils.device import start
 
 
 @report_input_errors
@@ -50,12 +51,8 @@ def main(argv=None) -> int:
     pe.add_argument("--capacity", type=int, default=65536,
                     help="flat-contract support capacity")
     pe.add_argument("--platforms", default=None,
-                    help="comma-separated lowering targets, e.g. cpu,tpu "
+                    help="comma-separated lowering targets, e.g. cpu,cuda "
                     "(default: current backend)")
-    pe.add_argument("--pallas", choices=("auto", "on", "off"),
-                    default="auto",
-                    help="Pallas kernel path (TPU-only lowering); auto = "
-                    "on exactly when every target platform is tpu")
     pe.add_argument("--shard-frame", type=int, default=0, metavar="N",
                     help="freeze the ROW-SHARDED matcher over N devices "
                     "(one pair's rows across the mesh, 14-row halo; "
@@ -75,8 +72,7 @@ def main(argv=None) -> int:
     pe.add_argument("--max-tests", type=int, default=None, metavar="T",
                     help="truncate the forest to its first T tests (file "
                     "order) before freezing — T + bit_length(2W-1) <= 30 "
-                    "rides the single-operand packed sort (+41%% device "
-                    "throughput, README fast-preset table)")
+                    "rides the single-operand packed sort")
 
     pr = sub.add_parser("run", help="serve one pair from an artifact")
     pr.add_argument("artifact")
@@ -88,6 +84,7 @@ def main(argv=None) -> int:
                     help="re-run the call N times, report the best")
 
     args = p.parse_args(argv)
+    start()
     return _export(args) if args.cmd == "export" else _run(args)
 
 
@@ -109,7 +106,6 @@ def _export(args) -> int:
         capacity=args.capacity,
     )
     plats = tuple(args.platforms.split(",")) if args.platforms else None
-    use_pallas = {"auto": None, "on": True, "off": False}[args.pallas]
     shape = (args.height, args.width)
     sf, dp, batch = args.shard_frame, args.data_parallel, args.batch
     extra = None
@@ -142,8 +138,7 @@ def _export(args) -> int:
                 mesh = make_mesh_2d(nd, sf, devs[:nd * sf])
                 blob = export_batched_sharded_frame(
                     forest, settings, batch, shape, mesh,
-                    contract=args.contract, use_pallas=use_pallas,
-                    num_levels=args.levels)
+                    contract=args.contract, num_levels=args.levels)
                 extra = {"mesh_shape": [nd, sf], "batch": batch,
                          "n_devices": nd * sf}
                 if args.contract == "pyramid":
@@ -151,8 +146,7 @@ def _export(args) -> int:
             else:
                 blob = export_sharded_frame(
                     forest, settings, shape, make_mesh(devs[:sf]),
-                    contract=args.contract, use_pallas=use_pallas,
-                    num_levels=args.levels)
+                    contract=args.contract, num_levels=args.levels)
                 extra = {"n_devices": sf}
                 if args.contract == "pyramid":
                     extra["num_levels"] = args.levels
@@ -168,7 +162,6 @@ def _export(args) -> int:
         else:
             blob = export_sparsematch(forest, settings, shape,
                                       contract=args.contract,
-                                      use_pallas=use_pallas,
                                       platforms=plats,
                                       num_levels=args.levels)
             if args.contract.startswith("pyramid"):
@@ -176,15 +169,9 @@ def _export(args) -> int:
     except ValueError as e:
         print(f"export failed: {e}", file=sys.stderr)
         return 1
-    if use_pallas is None:
-        # the same auto rule export_sparsematch just applied — one source
-        # of truth, so the recorded metadata cannot drift from the module
-        from opengpc_tpu.aot import resolve_use_pallas
-
-        use_pallas = resolve_use_pallas(plats)
     save_artifact(args.artifact, blob, contract=args.contract,
                   settings=settings, shape=shape, platforms=plats,
-                  use_pallas=use_pallas, extra=extra)
+                  extra=extra)
     print(f"wrote {args.artifact} ({len(blob)} byte module, contract "
           f"{args.contract}, shape {shape}, platforms "
           f"{','.join(plats) if plats else 'default'})")

@@ -17,6 +17,7 @@ import sys
 from opengpc_tpu.io.triplets import save_triplets
 from opengpc_tpu.mine import extract_flow_dataset, extract_stereo_dataset
 from opengpc_tpu.cli._errors import report_input_errors
+from opengpc_tpu.utils.device import start
 
 
 @report_input_errors
@@ -39,6 +40,7 @@ def main(argv=None) -> int:
                    help="flow mode: which render pass to read frames from")
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
+    start()
 
     if args.mode == "flow":
         data = extract_flow_dataset(

@@ -20,6 +20,7 @@ from opengpc_tpu.forest import save_forest
 from opengpc_tpu.io.triplets import load_triplets
 from opengpc_tpu.train import train_forest
 from opengpc_tpu.cli._errors import report_input_errors
+from opengpc_tpu.utils.device import start
 
 
 @report_input_errors
@@ -55,10 +56,11 @@ def main(argv=None) -> int:
     p.add_argument("--data-parallel", type=int, default=0, metavar="N",
                    help="shard the triplet axis over the first N devices "
                    "during level scoring (each level's TP/FP/FN reduction "
-                   "becomes one psum over ICI; selected splits are "
+                   "becomes one psum; selected splits are "
                    "IDENTICAL — integer counts are exact regardless of "
                    "sharding, tests/test_parallel.py)")
     args = p.parse_args(argv)
+    start()
 
     triplets = load_triplets(args.dataset)
     print(f"Loaded {triplets.shape[0]} triplets from {args.dataset}")

@@ -2,7 +2,7 @@
 
 The GPC method emits sparse supports; downstream consumers often want a
 dense map (the paper pipelines supports into an edge-preserving
-interpolator).  This is a simple TPU-friendly densifier: seed a dense grid
+interpolator).  This is a simple data-parallel densifier: seed a dense grid
 with the supports and run a fixed number of masked Jacobi diffusion
 sweeps — unknown pixels take the mean of their already-filled 4-neighbors,
 known support pixels stay pinned.  Static shapes, ``lax.fori_loop``, no
@@ -82,7 +82,7 @@ def _diffuse(value, known, num_iters: int, filled0=None):
 
 
 def _diffuse_multigrid(value, known, sweeps_per_level: int):
-    """Coarse-to-fine masked diffusion (VERDICT r4 #4): restrict the seeds
+    """Coarse-to-fine masked diffusion: restrict the seeds
     down a 2x2-box pyramid (weighted sums, so coarse seeds are the exact
     means of their fine seeds), solve the coarsest grid with a few Jacobi
     sweeps, then repeatedly upsample (nearest) and relax ``sweeps_per_
@@ -119,10 +119,9 @@ def _diffuse_multigrid(value, known, sweeps_per_level: int):
 
 
 def _masked_seed_scatter(buf, disp_high: int, w: int):
-    """Scatter seeding of the dense grid from a masked buffer.  Correct
-    but SLOW on TPU: one .at[].set of ~n_supports updates costs ~10 ms at
-    Sintel density (measured, experiments/exp_dense_masked.py) — kept for
-    the A/B; the sort-merge seeding below is the production path."""
+    """Scatter seeding of the dense grid from a masked buffer, kept for
+    the A/B against the sort-merge seeding below (the production path;
+    which is faster on the GPU is not yet measured, ROADMAP Speed 4)."""
     from opengpc_tpu.match import MASKED_SENTINEL
 
     h = buf.shape[0]
@@ -148,9 +147,8 @@ def _masked_seed_scatter(buf, disp_high: int, w: int):
 
 def _masked_seed_sortmerge(buf, disp_high: int, w: int):
     """Sort-merge seeding: place masked-buffer entries into the dense grid
-    with TWO row sorts instead of a scatter (XLA TPU scatter costs ~10 ms
-    for Sintel-density seeds; the sorts ~1 ms — measured A/B in
-    experiments/exp_dense_masked.py, same trade as match.compact).
+    with TWO row sorts instead of a scatter (same trade as
+    match.compact).
 
     Merge trick: per row, sort candidate keys ``2x`` (unique — a source
     pixel pairs at most once) together with one placeholder key ``2x+1``
@@ -211,9 +209,9 @@ def densify_from_masked(buf, row_counts, disp_high: int,
     """DEVICE-RESIDENT masked-contract consumer: dense float32 disparity
     straight from ``build_sparsematch_masked``'s (buf, row_counts) with NO
     host decode/re-upload — the proof of match.py's "device-resident
-    consumers can reduce over the masked buffer directly" (VERDICT r3
-    item 6; the subsystem supersedes the reference's unused refinement
-    hooks, buffer.hpp:104-119).
+    consumers can reduce over the masked buffer directly" (the subsystem
+    supersedes the reference's unused refinement hooks,
+    buffer.hpp:104-119).
 
     Decodes (x, d) from the packed buffer on device, seeds the dense grid
     with one scatter, and runs the same masked-Jacobi diffusion as
@@ -225,8 +223,6 @@ def densify_from_masked(buf, row_counts, disp_high: int,
     result).  ``width``: the image width W — REQUIRED for the
     chunk-compacted contract's narrower buffers (defaults to
     buf.shape[1] // 2, correct only for the full-width masked contract).
-    Device-timed vs the decode-then-densify host loop in
-    experiments/exp_dense_masked.py.
 
     ``method``: "multigrid" (default, r5) runs the coarse-to-fine solver —
     unbounded fill radius at O(log) cost, ``num_iters`` = sweeps PER LEVEL

@@ -204,8 +204,8 @@ def truncate_forest(forest: Forest, max_tests: int) -> Forest:
 
     Why: the matcher sort drops its payload operand when
     ``num_tests + bit_length(2W-1) <= 30`` (match._pack_ok — ≤17 tests at
-    Sintel width), measured +41% device throughput on the masked contract
-    (README ledger).  ``truncate_forest(f, n)`` gives the same filter mask
+    Sintel width): one sort operand less, for fewer supports.
+    ``truncate_forest(f, n)`` gives the same filter mask
     as ``make_filter_mask(f, max_tests=n)`` except for one corner: a TAU
     forest whose kept prefix is all-zero derives type 0 instead of the
     reference's all-parsed-tests type rule — the match results are

@@ -421,7 +421,7 @@ def read_gray_batch(paths, max_workers: int = 8):
 
     The libpng decoder (cpp/io.cc via ctypes) releases the GIL during the
     foreign call, so a thread pool gives real parallel decode — the
-    TPU-framework equivalent of a native multi-threaded loader for the
+    equivalent of a native multi-threaded loader for the
     mining/training input pipeline.  Order of results matches ``paths``.
     """
     import concurrent.futures

@@ -1,7 +1,7 @@
 """On-device unique-collision matching.
 
 Replaces both reference matchers (hash table hashmatch.hpp:42-273 and
-sort+sweep inference.hpp:227-254) with one TPU-native design: sort the
+sort+sweep inference.hpp:227-254) with one data-parallel design: sort the
 descriptors of both images together by (validity, state) and detect runs
 of *exactly two* equal states coming from *different* images — which is
 precisely the reference's "state unique in both images and equal" rule
@@ -12,14 +12,14 @@ Two layouts:
 * epipolar mode — the reference packs y into the upper state bits
   (inference.hpp:192-197) so only same-row codes collide.  Here that
   becomes a *per-row* segmented sort over the row-concatenated pair
-  (H, 2W): H independent small sorts instead of one big 64-bit sort.
-  Massively cheaper on TPU and bit-free.
+  (H, 2W): H independent small sorts instead of one big 64-bit sort,
+  with no extra key bits.
 * global mode — one flat sort over both images; the vertical-tolerance
   filter (inference.hpp:384-391) applies afterwards.
 
 Output is a fixed-capacity support buffer plus a match count (device
-pipelines keep static shapes; compaction is a sort by position/packed key
-— XLA TPU scatter is ~35x slower, see compact()).
+pipelines keep static shapes; compaction is a sort by position/packed key,
+see compact()).
 
 Deliberate deviation from the reference, pinned by tests: the reference
 sweep never emits a match landing on the last target element and skips
@@ -60,12 +60,11 @@ def compact(mask: jnp.ndarray, values: Tuple[jnp.ndarray, ...], capacity: int):
 
     Implemented as ONE unstable flat sort by a position key (matched
     entries keep their flat index, others get the max sentinel) with the
-    values as payload operands.  The obvious cumsum+scatter formulation is
-    10-35x slower on v5e — XLA TPU scatter costs ~7 us per thousand
-    updates (measured: 16 ms of a 0.4 ms pipeline went to compacting the
-    support buffers; experiments/exp_sort2.py + README roofline ledger).
-    Prefer :func:`compact_packed` in hot paths — packing the payload into
-    the key makes the sort single-operand.
+    values as payload operands, instead of the cumsum+scatter
+    formulation (which of the two is faster on the GPU is not yet
+    measured; ROADMAP Speed 4).  Prefer :func:`compact_packed` in hot
+    paths — packing the payload into the key makes the sort
+    single-operand.
     """
     mask_f = mask.reshape(-1)
     n = mask_f.shape[0]
@@ -148,9 +147,8 @@ def _pack_ok(num_tests, w2) -> bool:
     packed keys (code << pos_bits | pos) stay below SENTINEL_BASE, and the
     per-position sentinels pass through UNCHANGED (they already encode
     their position), so the matcher sort drops its payload operand
-    entirely — measured 3.4x on the CPU sort, 1-op vs 2-op on TPU was
-    0.47 vs 0.82 ms for the flat global sort (README ledger).  Small
-    forests only: 17 tests at Sintel width (pos_bits 11), 19 at W<=256."""
+    entirely (3.4x faster on the CPU sort).  Small forests only: 17
+    tests at Sintel width (pos_bits 11), 19 at W<=256."""
     return num_tests is not None and num_tests + _pos_bits(w2) <= 30
 
 
@@ -187,7 +185,7 @@ def _sort_key_pos(key, pos, w2, num_tests):
     # identical either way — two matched pairs always have different
     # codes, hence distinct sorted positions.  XLA implements a stable
     # sort by adding an iota tiebreaker to the comparator; dropping it
-    # removes real comparator work (measured A/B in experiments/exp_sort.py)
+    # removes real comparator work
     return jax.lax.sort((key, pos), dimension=1, num_keys=1,
                         is_stable=False)
 
@@ -200,7 +198,6 @@ def match_epipolar(
     disp_high: int,
     capacity: int,
     packed: bool = False,
-    sort_impl: str = "auto",
     num_tests=None,
 ):
     """Per-row unique-collision matching of two (H, W) code images.
@@ -218,7 +215,7 @@ def match_epipolar(
     if packed:
         return _match_epipolar_packed(
             code_src, code_tar, valid_src, valid_tar, disp_high, capacity,
-            sort_impl, num_tests=num_tests,
+            num_tests=num_tests,
         )
     h, w = code_src.shape
     code = jnp.concatenate([code_src, code_tar], axis=1)
@@ -229,9 +226,9 @@ def match_epipolar(
     xcoord = jnp.broadcast_to(jnp.arange(w, dtype=jnp.int32)[None, :], (h, w))
     xcoord = jnp.concatenate([xcoord, xcoord], axis=1)
 
-    # UNSTABLE sort (stable adds an iota tiebreaker operand — measured in
-    # experiments/exp_sort.py); a cross pair's (src, tar) order is
-    # recovered from the flag, not from sort stability
+    # UNSTABLE sort (stable adds an iota tiebreaker operand); a cross
+    # pair's (src, tar) order is recovered from the flag, not from sort
+    # stability
     invalid_s, code_s, flag_s, x_s = jax.lax.sort(
         (invalid, code, flag, xcoord), dimension=1, num_keys=2,
         is_stable=False,
@@ -248,10 +245,9 @@ def match_epipolar(
 
 
 def _match_epipolar_packed(code_src, code_tar, valid_src, valid_tar,
-                           disp_high, capacity, sort_impl="auto", key=None,
-                           num_tests=None):
+                           disp_high, capacity, key=None, num_tests=None):
     if key is not None:
-        # prebuilt (H, 2W) sentinel-packed key image (ops/fused.fused_keys)
+        # prebuilt (H, 2W) sentinel-packed key image (infer._key_image_jnp)
         h, w2 = key.shape
         w = w2 // 2
         pos = jnp.broadcast_to(
@@ -269,31 +265,9 @@ def _match_epipolar_packed(code_src, code_tar, valid_src, valid_tar,
         # the sort
         key = jnp.where(valid, code, SENTINEL_BASE + pos)
 
-    if sort_impl == "auto":
-        # measured on v5e: the bitonic Pallas kernel beats lax.sort
-        # standalone (0.40 vs 0.47 ms on 436x2048) but loses in-pipeline —
-        # the pallas_call boundary forces HBM roundtrips for key/pos and
-        # blocks XLA fusion with the surrounding ops (~0.24 ms), so the
-        # fused lax.sort is the right default
-        sort_impl = "lax"
-    if sort_impl == "bitonic":
-        from opengpc_tpu.ops.sort import bitonic_sort_rows
-
-        n2 = max(256, 1 << (2 * w - 1).bit_length())
-        if n2 > 2 * w:
-            # pad with unique keys above the invalid sentinels (pos < 2w
-            # stays far below the 0x7F000000 range); padded entries have
-            # pos >= 2w so the cross check below rejects them anyway
-            pad_pos = jnp.broadcast_to(
-                jnp.arange(2 * w, n2, dtype=jnp.int32)[None, :], (h, n2 - 2 * w)
-            )
-            key = jnp.concatenate([key, 0x7F000000 + pad_pos], axis=1)
-            pos = jnp.concatenate([pos, pad_pos], axis=1)
-        key_s, pos_s = bitonic_sort_rows(key, pos)
-    else:
-        # single-operand when the code width allows, (key, pos) UNSTABLE
-        # sort otherwise — see _sort_key_pos
-        key_s, pos_s = _sort_key_pos(key, pos, 2 * w, num_tests)
+    # single-operand when the code width allows, (key, pos) UNSTABLE
+    # sort otherwise — see _sort_key_pos
+    key_s, pos_s = _sort_key_pos(key, pos, 2 * w, num_tests)
     keep, src_x, d = _detect_pairs_packed(key_s, pos_s, w, disp_high)
     if capacity is None:  # row-form output (match_epipolar_rows)
         return _row_pack(keep, src_x, d, w, disp_high)
@@ -348,8 +322,7 @@ def match_epipolar_masked(code_src, code_tar, valid_src, valid_tar,
                           disp_high, key=None, num_tests=None):
     """MASKED sorted-order epipolar matcher — the minimum-device-work
     output contract: one row sort, pair detection, and a masked emit; NO
-    packing sort at all (~1.3x the row-form contract's device throughput,
-    measured in experiments/exp_global.py's masked entry / BENCH).
+    packing sort at all (the row-form contract's work minus its pack).
 
     Returns (buf (H, 2W) int32, row_counts (H,)): window position i of row
     y holds ``(src_x << bd) | (d + disp_high)`` where a support was
@@ -381,9 +354,9 @@ def match_epipolar_masked(code_src, code_tar, valid_src, valid_tar,
     return _masked_emit(keep, src_x, d, w, disp_high)
 
 
-# default (chunk, k) for the chunk-compacted masked contract: S=128/K=64
-# measured best on the low-density sweep (experiments/exp_lowdens.py); the
-# K/S=1/2 ratio makes the guard an effective per-row capacity of W
+# default (chunk, k) for the chunk-compacted masked contract: S=128/K=64,
+# the best of an earlier low-density sweep (not yet re-swept on the GPU);
+# the K/S=1/2 ratio makes the guard an effective per-row capacity of W
 MASKED_COMPACT_CHUNKS = (128, 64)
 
 
@@ -411,9 +384,8 @@ def match_epipolar_masked_compact(key, disp_high, chunk: int = None,
                                   k: int = None, num_tests=None,
                                   row_overflow: bool = False):
     """Low-density fast path of the masked contract: STRIDED chunked
-    pre-compaction shrinks the matcher sort (VERDICT r3 item 2, adopted
-    from experiments/exp_lowdens.py: 0.338 vs 0.430 ms at 15% candidate
-    density — 2640 vs 2077 Mpix/s — exact support set).
+    pre-compaction shrinks the matcher sort at realistic (~15%) candidate
+    density, with the exact support set.
 
     Each (2W) key row is split into nc = 2W/chunk STRIDED chunks (chunk c
     holds positions p with p % nc == c, so texture-patch candidate
@@ -487,7 +459,7 @@ def match_epipolar_masked_compact(key, disp_high, chunk: int = None,
 def _row_pack(keep, src_x, d, w, disp_high):
     """Row-form support output: per-row left-packed (xs, ds) buffers plus
     per-row counts — no flat assembly at all.  Packing is one single-
-    operand ROW sort ((x, d) in the key), ~4x cheaper than the flat
+    operand ROW sort ((x, d) in the key) instead of the flat
     compaction sort; the flat (n, 3) array is assembled host-side by
     infer.row_supports_to_numpy.  At most W supports per row (each uses
     two sorted slots), so the (H, W) slice is lossless."""
@@ -518,8 +490,8 @@ def match_epipolar_rows(code_src, code_tar, valid_src, valid_tar, disp_high,
 
     Same unique-collision semantics as match_epipolar(packed=True) but the
     supports stay in per-row left-packed buffers — skipping the flat
-    compaction sort entirely (the costliest stage of the flat pipeline;
-    see README roofline ledger).  Row y's supports are
+    compaction sort entirely (the costliest stage of the flat
+    pipeline).  Row y's supports are
     (xs[y, :c], y, ds[y, :c]) with c = row_counts[y], ordered by x.
     """
     return _match_epipolar_packed(code_src, code_tar, valid_src, valid_tar,
@@ -623,14 +595,14 @@ def match_global_rows(
 
     ``key_img``: (H, 2W) sentinel-packed key image (source columns [0, W),
     target [W, 2W); invalid pixels carry unique sentinels >= SENTINEL_BASE,
-    exactly what ops/fused.fused_keys / infer._key_image_jnp emit).
+    exactly what infer._key_image_jnp emits).
 
     One flat 2-operand sort finds the globally-unique collisions (the
     uniqueness domain spans the whole image pair, inference.hpp:227-254);
     the supports are then packed with ONE cheap segmented row sort over the
     (R, C) reshape of the sorted order, instead of the flat-contract
-    compaction sort over all 2HW elements (the costliest stage; measured
-    in experiments/exp_global.py).  Rows are arbitrary C-length segments
+    compaction sort over all 2HW elements (the flat contract's costliest
+    stage).  Rows are arbitrary C-length segments
     of the code-sorted order — row r's supports are (xs[r, :c], ys[r, :c],
     ds[r, :c]) with c = counts[r]; assemble with
     infer.global_row_supports_to_numpy.
@@ -721,8 +693,8 @@ def _global_rows_core(key, pos, w, w2, h, disp_high, vertical_tolerance,
 
 def global_compact_chunks(w2: int):
     """Default (chunk, k) for the chunk-compacted global contract.  Wide
-    rows (w2 >= 2048) take the deep K/S=1/4 ratio measured best on the
-    Sintel-sized sweep (S=512/K=128, experiments/exp_global_compact.py);
+    rows (w2 >= 2048) take the deep K/S=1/4 ratio (S=512/K=128, the best
+    of an earlier Sintel-sized sweep, not yet re-swept on the GPU);
     narrower rows keep K/S=1/2 (the masked-compact rule, effective
     per-row capacity W) because the strided chunk count collapses at
     small widths and a 1/4 capacity then overflows on ordinary
@@ -760,10 +732,8 @@ def match_global_rows_compact(key_img: jnp.ndarray, w: int, disp_high: int,
     pre-compaction shrinks the flat global sort — match_global_rows' cost
     is ONE density-independent sort over all 2HW elements, and at
     realistic candidate density most of that input is never-colliding
-    sentinels (experiments/exp_global_compact.py: 0.587 vs 1.119 ms at 15%
-    density on the Sintel-sized scene, 1521 vs 798 Mpix/s, +91% — adopted
-    r4; S=512/K=128 measured best of the sweep, and larger chunks tolerate
-    more local clustering than the masked contract's S=128).
+    sentinels (larger chunks, S=512/K=128, tolerate more local clustering
+    than the masked contract's S=128).
 
     Each (2W) key row splits into nc strided chunks (chunk c holds
     positions {p : p % nc == c}); each chunk is sorted (valid codes <

@@ -1,6 +1,6 @@
-"""Image preprocessing ops (jnp reference path).
+"""Image preprocessing ops.
 
-TPU-first recast of the reference's SIMD kernels
+Data-parallel recast of the reference's SIMD kernels
 (/root/reference/lib/gpc/filter.hpp): dense masked compute on the whole
 image instead of row loops + index-list sparsity.  Semantics follow the
 *naive* scalar paths, which are the parity contract (SURVEY.md §7):
@@ -14,8 +14,7 @@ image instead of row loops + index-list sparsity.  Semantics follow the
   (inference.hpp:318-325).
 
 These are elementwise shift/add chains that XLA fuses into a handful of
-VPU loops; the fused Pallas kernel in ops/fused.py goes further
-and merges them with leaf-code extraction.
+loop fusions together with the leaf-code compares (ops/codes.py).
 """
 
 from __future__ import annotations
@@ -26,8 +25,8 @@ import jax.numpy as jnp
 
 def require_u8(img) -> None:
     """Trace-time dtype guard shared by every preprocessing entry — the
-    jnp ops, the fused Pallas kernels (incl. the sharded slab variants),
-    and the one-call API: a float image (matplotlib/skimage imread
+    whole-image and slab key images (incl. the sharded paths) and the
+    one-call API: a float image (matplotlib/skimage imread
     returns float64 in [0, 1]) silently produces ZERO candidates —
     sobel/box carry the reference's uint8-exact semantics — so reject it
     with a typed error instead of returning an empty support set.  dtype
@@ -94,8 +93,8 @@ def sobel3(img: jnp.ndarray, threshold: int) -> jnp.ndarray:
 
 
 # The candidate interior margin (inference.hpp:318-325): the single source
-# of truth — ops/fused.MARGIN and infer._interior_rows derive from it, so
-# the kernel mask and the interior-row slice can never desync.
+# of truth — ops/codes.MARGIN and infer._interior_rows derive from it, so
+# the slab mask and the interior-row slice can never desync.
 CANDIDATE_MARGIN = 13
 
 

@@ -3,9 +3,9 @@
 The problem is embarrassingly parallel over stereo pairs (inference) and
 over training triplets (training) — the reference's only parallelism was
 SIMD lanes + row-partitioned threads (/root/reference/lib/gpc/filter.hpp:
-128-145); the TPU-native recast is ``vmap`` within a chip and sharding of
-the batch/triplet axis over a ``jax.sharding.Mesh`` (SPMD, collectives
-over ICI).
+128-145); the recast here is ``vmap`` within a device and sharding of
+the batch/triplet axis over a ``jax.sharding.Mesh`` (SPMD; XLA hands the
+collectives to NCCL, over NVLink between the cards of one host).
 """
 
 from __future__ import annotations
@@ -16,7 +16,8 @@ from typing import Optional, Sequence
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from jax import shard_map
+from jax.sharding import Mesh, PartitionSpec as P
 
 from opengpc_tpu.config import InferenceSettings
 from opengpc_tpu.forest import Forest, make_filter_mask
@@ -27,12 +28,13 @@ ROWS_AXIS = "rows"
 
 
 def init_distributed(**kwargs) -> int:
-    """Initialize multi-host JAX (DCN) when launched under a multi-host
-    runtime; harmless no-op on a single host.
+    """Initialize multi-process JAX when launched under a multi-process
+    runtime; harmless no-op in a single process.
 
     Returns the process count.  After this, ``make_mesh()`` spans all
-    hosts' devices and batch/triplet sharding rides ICI within a slice and
-    DCN across hosts, with no further code changes (SPMD)."""
+    processes' devices and batch/triplet sharding spans them with no
+    further code changes (SPMD).  Without a cluster runtime, pass
+    ``coordinator_address``, ``num_processes`` and ``process_id``."""
     try:
         jax.distributed.initialize(**kwargs)
     except (RuntimeError, ValueError) as e:
@@ -56,9 +58,8 @@ def make_mesh_2d(n_data: int, n_rows: int,
                  devices: Optional[Sequence] = None) -> Mesh:
     """2-D ("data", "rows") mesh: ``n_data`` independent frame groups, each
     row-sharding its frames over ``n_rows`` chips.  Devices fill row-major,
-    so consecutive devices form one frame group — on real hardware pass a
-    device order where those are ICI neighbors (the halo ppermutes ride the
-    "rows" axis)."""
+    so consecutive devices form one frame group (the halo ppermutes ride
+    the "rows" axis; on an all-to-all NVLink host any order is as good)."""
     devices = list(devices if devices is not None else jax.devices())
     if len(devices) < n_data * n_rows:
         raise ValueError(
@@ -68,40 +69,29 @@ def make_mesh_2d(n_data: int, n_rows: int,
     return Mesh(arr, (DATA_AXIS, ROWS_AXIS))
 
 
-def build_batched_sparsematch(forest: Forest, settings: InferenceSettings, mesh: Mesh,
-                              use_pallas=None):
+def build_batched_sparsematch(forest: Forest, settings: InferenceSettings,
+                              mesh: Mesh):
     """Jitted (B, H, W) x2 -> per-pair supports, batch sharded over the mesh.
 
     Per-pair work is independent, so the batch axis is split with
     ``shard_map``: every chip runs the complete per-shard program (vmap
     over its local pairs) and no collectives are inserted.  shard_map —
-    not jit-with-shardings — is deliberate: the pipeline contains Pallas
-    custom calls, which the GSPMD partitioner cannot split automatically;
-    under shard_map each device traces its own single-device kernel.
+    not jit-with-shardings — keeps every device on its own single-device
+    program: the partitioner never has to split a sort.
 
     B must be divisible by the mesh size.  Outputs keep the batch
     sharding (supports stay device-resident for downstream consumers).
     """
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
-
     mask = make_filter_mask(forest)
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
     _one = functools.partial(
-        _sparsematch_impl, mask=mask, settings=settings, use_pallas=use_pallas
+        _sparsematch_impl, mask=mask, settings=settings
     )
 
     def local(ls, rs):
-        # sequential scan over the per-chip shard, not vmap: batched flat
-        # compaction sorts are pathological under vmap on TPU (see
-        # infer.build_sparsematch); chips still run shards in parallel
+        # sequential scan over the per-device shard, not vmap (see
+        # infer.build_sparsematch); devices still run shards in parallel
         return jax.lax.map(lambda ab: _one(*ab), (ls, rs))
     spec = P(DATA_AXIS)
-    # check_vma=False: the pipeline may contain pallas_call, whose
-    # out_shapes carry no varying-mesh-axis annotation
     fn = shard_map(
         local, mesh=mesh,
         in_specs=(spec, spec),
@@ -112,27 +102,19 @@ def build_batched_sparsematch(forest: Forest, settings: InferenceSettings, mesh:
 
 
 def build_batched_sparsematch_rows(forest: Forest, settings: InferenceSettings,
-                                   mesh: Mesh, use_pallas=None):
+                                   mesh: Mesh):
     """Row-form variant of build_batched_sparsematch — the maximum-
     throughput contract sharded over the mesh: (B, H, W) x2 ->
     ((xs, ds) (B, H, W) each, row_counts (B, H)), batch axis split with
     shard_map like the flat variant.  Epipolar, <=30-test forests only
     (infer.build_sparsematch_rows)."""
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
-
     from opengpc_tpu.infer import _sparsematch_rows_batched_impl
 
     mask = make_filter_mask(forest)
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
     # stacked batch per shard: each chip folds its local pairs into ONE
     # (B_local*H, 2W) segmented sort (infer._sparsematch_rows_batched_impl)
     local = functools.partial(
         _sparsematch_rows_batched_impl, mask=mask, settings=settings,
-        use_pallas=use_pallas,
     )
 
     spec = P(DATA_AXIS)
@@ -147,24 +129,16 @@ def build_batched_sparsematch_rows(forest: Forest, settings: InferenceSettings,
 
 def build_batched_sparsematch_masked(forest: Forest,
                                      settings: InferenceSettings,
-                                     mesh: Mesh, use_pallas=None):
+                                     mesh: Mesh):
     """Masked sorted-order contract over a device mesh: (B, H, W) x2 ->
     (buf (B, H, 2W), row_counts (B, H)), batch split with shard_map; each
     chip folds its local pairs into one (B_local*H, 2W) sort (the masked
     impl handles the batched fold natively)."""
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
-
     from opengpc_tpu.infer import _sparsematch_masked_impl
 
     mask = make_filter_mask(forest)
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
     local = functools.partial(
         _sparsematch_masked_impl, mask=mask, settings=settings,
-        use_pallas=use_pallas,
     )
     spec = P(DATA_AXIS)
     fn = shard_map(
@@ -178,7 +152,7 @@ def build_batched_sparsematch_masked(forest: Forest,
 
 def build_batched_sparsematch_masked_compact(forest: Forest,
                                              settings: InferenceSettings,
-                                             mesh: Mesh, use_pallas=None,
+                                             mesh: Mesh,
                                              chunk=None, k=None):
     """Chunk-compacted masked contract over a device mesh (the r4
     low-density fast path): (B, H, W) x2 -> (buf (B, H, C), row_counts
@@ -187,21 +161,13 @@ def build_batched_sparsematch_masked_compact(forest: Forest,
     own overflow flag — re-run the full-width masked builder when
     ``overflow.any()`` (exactness contract of
     infer.build_sparsematch_masked_compact)."""
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
-
     from opengpc_tpu.infer import _sparsematch_masked_compact_impl
 
     mask = make_filter_mask(forest)
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
 
     def local(ls, rs):
         buf, counts, ovf = _sparsematch_masked_compact_impl(
-            ls, rs, mask=mask, settings=settings, use_pallas=use_pallas,
-            chunk=chunk, k=k,
+            ls, rs, mask=mask, settings=settings, chunk=chunk, k=k,
         )
         return buf, counts, ovf.reshape(1)
 
@@ -217,25 +183,17 @@ def build_batched_sparsematch_masked_compact(forest: Forest,
 
 def build_batched_sparsematch_global_rows(forest: Forest,
                                           settings: InferenceSettings,
-                                          mesh: Mesh, use_pallas=None):
+                                          mesh: Mesh):
     """Global-mode variant of build_batched_sparsematch_rows: (B, H, W) x2
     -> ((xs, ys, ds) (B, R, C) each, counts (B, R)), batch axis split with
     shard_map (segmented global contract, infer.build_sparsematch_global_rows).
     Per-pair global sorts stay independent, so the shard-local batch runs
-    under lax.map (a batched flat sort is the measured vmap pathology)."""
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
-
+    under lax.map (vmap would turn them into one batched flat sort)."""
     from opengpc_tpu.infer import _sparsematch_global_rows_impl
 
     mask = make_filter_mask(forest)
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
     _one = functools.partial(
         _sparsematch_global_rows_impl, mask=mask, settings=settings,
-        use_pallas=use_pallas,
     )
 
     def local(ls, rs):
@@ -253,30 +211,22 @@ def build_batched_sparsematch_global_rows(forest: Forest,
 
 def build_batched_sparsematch_global_compact(forest: Forest,
                                              settings: InferenceSettings,
-                                             mesh: Mesh, use_pallas=None,
+                                             mesh: Mesh,
                                              chunk=None, k=None):
-    """Chunk-compacted GLOBAL contract over a device mesh (the r4
-    low-density global fast path, +91% at 15% density —
-    experiments/exp_global_compact.py): (B, H, W) x2 -> ((xs, ys, ds)
+    """Chunk-compacted GLOBAL contract over a device mesh (the
+    low-density global fast path): (B, H, W) x2 -> ((xs, ys, ds)
     (B, R, C) each, counts (B, R), overflow (B,) bool).  Batch axis split
     with shard_map; the shard-local batch runs under lax.map (per-pair
-    flat sorts — the vmap'd batched global sort is the measured
-    pathology), giving PER-PAIR overflow flags: re-run overflowing pairs
-    through the full-width global builder (exactness contract of
+    flat sorts, like the single-device builder), giving PER-PAIR overflow
+    flags: re-run overflowing pairs through the full-width global builder
+    (exactness contract of
     infer.build_sparsematch_global_compact)."""
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
-
     from opengpc_tpu.infer import _sparsematch_global_compact_impl
 
     mask = make_filter_mask(forest)
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
     _one = functools.partial(
         _sparsematch_global_compact_impl, mask=mask, settings=settings,
-        use_pallas=use_pallas, chunk=chunk, k=k,
+        chunk=chunk, k=k,
     )
 
     def local(ls, rs):
@@ -294,7 +244,7 @@ def build_batched_sparsematch_global_compact(forest: Forest,
 
 def build_sharded_frame_sparsematch(forest_or_mask,
                                     settings: InferenceSettings,
-                                    mesh: Mesh, use_pallas=None,
+                                    mesh: Mesh,
                                     contract: str = "masked",
                                     chunk=None, k=None, bucket_cap=None):
     """SINGLE-FRAME multi-chip matcher: shard ONE (H, W) pair's ROWS over
@@ -303,12 +253,12 @@ def build_sharded_frame_sparsematch(forest_or_mask,
     (/root/reference/lib/gpc/filter.hpp:128-145, used by the hot kernel at
     filter.hpp:601-604).  Epipolar rows are independent, so the result is
     exact by construction with ZERO matcher collectives; the only
-    communication is a 14-row halo exchange (two ``ppermute``s over ICI)
+    communication is a 14-row halo exchange (two ``ppermute``s)
     so each shard's preprocessing/code windows see real neighbor rows.
 
     Each chip receives H/n rows (H must divide by the mesh size), swaps
-    halos, runs the fused key kernel (ops/fused.fused_keys_slab — global-
-    coordinate margin math via an SMEM scalar row offset) plus the matcher
+    halos, builds its slab's key image (infer._key_image_jnp_slab —
+    global-coordinate margin math from a traced row offset) plus the matcher
     on its slab, and emits its row block of the full-image result:
 
     * ``contract="masked"`` (default): (buf (H, 2W), row_counts (H,)) —
@@ -334,7 +284,7 @@ def build_sharded_frame_sparsematch(forest_or_mask,
       (match._strided_chunk_compact, 2HW -> 2HW*(K/S) survivors), assigns
       each survivor to the chip owning its code range (fern codes are
       hash-uniform, so a static equal-width partition of [0, 2^30)
-      balances), exchanges buckets with ONE ``all_to_all`` over ICI
+      balances), exchanges buckets with ONE ``all_to_all``
       (fixed per-destination capacity ``bucket_cap``), and detects
       duplicate collisions with a LOCAL sort of its own bucket — equal
       codes land on the same chip by construction, so cross-shard
@@ -358,11 +308,6 @@ def build_sharded_frame_sparsematch(forest_or_mask,
     is skipped here — margin rows land in the edge shards only and cost
     <3% of their sort at realistic H (documented deviation).
     """
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
-
     from opengpc_tpu.infer import (_global_rows_ok, _key_image_jnp_slab,
                                    _rows_ok)
     from opengpc_tpu.match import (SENTINEL_BASE, _global_rows_core,
@@ -371,7 +316,7 @@ def build_sharded_frame_sparsematch(forest_or_mask,
                                    match_epipolar_masked_compact,
                                    match_epipolar_rows,
                                    resolve_global_compact_chunks)
-    from opengpc_tpu.ops.fused import PAD, fused_keys_slab
+    from opengpc_tpu.ops.codes import PAD
 
     if contract not in ("masked", "rows", "masked-compact",
                         "global-compact"):
@@ -383,8 +328,6 @@ def build_sharded_frame_sparsematch(forest_or_mask,
         if isinstance(forest_or_mask, Forest)
         else forest_or_mask
     )
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
     n = int(np.prod(mesh.devices.shape))
     axis = DATA_AXIS
     fwd = [(i, i + 1) for i in range(n - 1)]
@@ -435,15 +378,7 @@ def build_sharded_frame_sparsematch(forest_or_mask,
 
         hl = with_halo(l_slab)
         hr = with_halo(r_slab)
-        if use_pallas:
-            key = jnp.concatenate([
-                fused_keys_slab(hl, mask, settings.gradient_threshold,
-                                0, SENTINEL_BASE, y0, h_total),
-                fused_keys_slab(hr, mask, settings.gradient_threshold,
-                                w, SENTINEL_BASE, y0, h_total),
-            ], axis=1)
-        else:
-            key = _key_image_jnp_slab(hl, hr, mask, settings, y0, h_total)
+        key = _key_image_jnp_slab(hl, hr, mask, settings, y0, h_total)
         if contract == "global-compact":
             w2 = 2 * w
             ch, kk = resolve_global_compact_chunks(w2, chunk, k)
@@ -540,9 +475,8 @@ def build_sharded_frame_sparsematch(forest_or_mask,
 
 def build_sharded_frame_pyramid(forest_or_mask,
                                 settings: InferenceSettings,
-                                mesh: Mesh, num_levels: int = 3,
-                                use_pallas=None):
-    """SINGLE-FRAME multi-chip PYRAMID matcher (VERDICT r4 #2c): shard one
+                                mesh: Mesh, num_levels: int = 3):
+    """SINGLE-FRAME multi-chip PYRAMID matcher: shard one
     (H, W) pair's rows over the mesh at EVERY pyramid level, so the
     multi-scale path composes with the same intra-image parallelism the
     flat contracts got (``build_sharded_frame_sparsematch``).
@@ -575,14 +509,9 @@ def build_sharded_frame_pyramid(forest_or_mask,
     Reference analog: multi-scale is the GPC paper's pipeline; row
     partitioning is filter.hpp:128-145 — composed, which the reference
     never does."""
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
-
     from opengpc_tpu.infer import _key_image_jnp_slab, _rows_ok
-    from opengpc_tpu.match import SENTINEL_BASE, match_epipolar_rows
-    from opengpc_tpu.ops.fused import PAD, fused_keys_slab
+    from opengpc_tpu.match import match_epipolar_rows
+    from opengpc_tpu.ops.codes import PAD
     from opengpc_tpu.pyramid import _dedup_unpack, _pack_params, downscale2
 
     mask = (
@@ -590,8 +519,6 @@ def build_sharded_frame_pyramid(forest_or_mask,
         if isinstance(forest_or_mask, Forest)
         else forest_or_mask
     )
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
     if not settings.epipolar_mode:
         raise ValueError("the sharded pyramid is epipolar-only (like "
                          "build_pyramid_sparsematch's fast path)")
@@ -638,15 +565,7 @@ def build_sharded_frame_pyramid(forest_or_mask,
             y0 = my * shl
             hl = with_halo(l_s)
             hr = with_halo(r_s)
-            if use_pallas:
-                key = jnp.concatenate([
-                    fused_keys_slab(hl, mask, settings.gradient_threshold,
-                                    0, SENTINEL_BASE, y0, h_l),
-                    fused_keys_slab(hr, mask, settings.gradient_threshold,
-                                    wl, SENTINEL_BASE, y0, h_l),
-                ], axis=1)
-            else:
-                key = _key_image_jnp_slab(hl, hr, mask, settings, y0, h_l)
+            key = _key_image_jnp_slab(hl, hr, mask, settings, y0, h_l)
             (xs, ds), counts = match_epipolar_rows(
                 None, None, None, None, settings.disp_high, key=key,
                 num_tests=mask.num_tests)
@@ -691,7 +610,7 @@ def build_sharded_frame_pyramid(forest_or_mask,
 
 def build_batched_sharded_frame_sparsematch(forest_or_mask,
                                             settings: InferenceSettings,
-                                            mesh: Mesh, use_pallas=None,
+                                            mesh: Mesh,
                                             contract: str = "masked",
                                             chunk=None, k=None):
     """(B, H, W) pairs sharded BOTH ways over a 2-D ("data", "rows") mesh
@@ -720,16 +639,11 @@ def build_batched_sharded_frame_sparsematch(forest_or_mask,
       (n_data,) bool) — one pmax-reduced flag per frame GROUP (the "rows"
       axis collapses); re-run that group's frames full-width on overflow.
     """
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
-
     from opengpc_tpu.infer import _key_image_jnp_slab, _rows_ok
-    from opengpc_tpu.match import (SENTINEL_BASE, match_epipolar_masked,
+    from opengpc_tpu.match import (match_epipolar_masked,
                                    match_epipolar_masked_compact,
                                    match_epipolar_rows)
-    from opengpc_tpu.ops.fused import PAD, fused_keys_slab
+    from opengpc_tpu.ops.codes import PAD
 
     if contract not in ("masked", "rows", "masked-compact"):
         raise ValueError(
@@ -744,8 +658,6 @@ def build_batched_sharded_frame_sparsematch(forest_or_mask,
         if isinstance(forest_or_mask, Forest)
         else forest_or_mask
     )
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
     n_rows = mesh.shape[ROWS_AXIS]
     n_data = mesh.shape[DATA_AXIS]
     fwd = [(i, i + 1) for i in range(n_rows - 1)]
@@ -777,22 +689,10 @@ def build_batched_sharded_frame_sparsematch(forest_or_mask,
 
         hl = with_halo(l_slabs)
         hr = with_halo(r_slabs)
-        if use_pallas:
-            def keyf(ab):
-                a, b = ab
-                return jnp.concatenate([
-                    fused_keys_slab(a, mask, settings.gradient_threshold,
-                                    0, SENTINEL_BASE, y0, h_total),
-                    fused_keys_slab(b, mask, settings.gradient_threshold,
-                                    w, SENTINEL_BASE, y0, h_total),
-                ], axis=1)
-
-            keys = jax.lax.map(keyf, (hl, hr))
-        else:
-            keys = jax.vmap(
-                lambda a, b: _key_image_jnp_slab(a, b, mask, settings,
-                                                 y0, h_total)
-            )(hl, hr)
+        keys = jax.vmap(
+            lambda a, b: _key_image_jnp_slab(a, b, mask, settings,
+                                             y0, h_total)
+        )(hl, hr)
         flat = keys.reshape(bl * sh, 2 * w)
         if contract == "masked-compact":
             buf, counts, ovf = match_epipolar_masked_compact(
@@ -843,18 +743,12 @@ def build_batched_sharded_frame_sparsematch(forest_or_mask,
 
 
 def build_batched_pyramid(forest_or_mask, settings: InferenceSettings,
-                          mesh: Mesh, num_levels: int = 3,
-                          use_pallas=None):
+                          mesh: Mesh, num_levels: int = 3):
     """(B, H, W) pyramids batch-sharded over a 1-D mesh: each chip runs
     the batched HYBRID pyramid fold on its local frames (per-level folded
     row sorts + per-pair lax.map dedup — build_pyramid_sparsematch's
     (B, H, W) path), no collectives.  B must divide by the mesh size.
     Outputs keep the stacked per-pair layout (counts (B, num_levels))."""
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
-
     from opengpc_tpu.pyramid import (_pyramid_impl,
                                      _pyramid_rows_batched_impl,
                                      _rows_eligible)
@@ -864,8 +758,6 @@ def build_batched_pyramid(forest_or_mask, settings: InferenceSettings,
         if isinstance(forest_or_mask, Forest)
         else forest_or_mask
     )
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
     n = int(np.prod(mesh.devices.shape))
 
     def local(ls, rs):
@@ -873,10 +765,10 @@ def build_batched_pyramid(forest_or_mask, settings: InferenceSettings,
                             num_levels)
         if el is not None:
             return _pyramid_rows_batched_impl(
-                ls, rs, mask, settings, num_levels, use_pallas, *el)
+                ls, rs, mask, settings, num_levels, *el)
         return jax.lax.map(
             lambda ab: _pyramid_impl(ab[0], ab[1], mask, settings,
-                                     num_levels, use_pallas, True),
+                                     num_levels, True),
             (ls, rs))
 
     spec = P(DATA_AXIS)
@@ -899,8 +791,7 @@ def build_batched_pyramid(forest_or_mask, settings: InferenceSettings,
 
 def build_batched_sharded_frame_pyramid(forest_or_mask,
                                         settings: InferenceSettings,
-                                        mesh: Mesh, num_levels: int = 3,
-                                        use_pallas=None):
+                                        mesh: Mesh, num_levels: int = 3):
     """(B, H, W) PYRAMIDS sharded both ways over a 2-D ("data", "rows")
     mesh — the full composition matrix cell (r5): frames over "data"
     (independent, zero collectives), every frame's rows over "rows" at
@@ -909,8 +800,8 @@ def build_batched_sharded_frame_pyramid(forest_or_mask,
     range of its frames throughout, so dedup groups (frame, pixel) never
     cross chips).  Per level, a chip folds ALL its local frame-slabs into
     ONE (B_local*sh_l, 2W_l) segmented row sort; the dedup runs per local
-    frame under ``lax.map`` (the hybrid rule — a batched (B, K) dedup
-    sort is a measured TPU dead end, README ledger).
+    frame under ``lax.map`` (the hybrid rule of
+    pyramid._pyramid_rows_batched_impl).
 
     Output contract: (xs, ys, ds, lv (B, n_rows*K_local) each, counts
     (B, num_levels)) — per-frame support set identical to the
@@ -919,14 +810,9 @@ def build_batched_sharded_frame_pyramid(forest_or_mask,
 
     Requires ``B % n_data == 0``, ``H % (n_rows * 2^(levels-1)) == 0``,
     and coarsest slabs >= the 14-row halo."""
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
-
     from opengpc_tpu.infer import _key_image_jnp_slab, _rows_ok
-    from opengpc_tpu.match import SENTINEL_BASE, match_epipolar_rows
-    from opengpc_tpu.ops.fused import PAD, fused_keys_slab
+    from opengpc_tpu.match import match_epipolar_rows
+    from opengpc_tpu.ops.codes import PAD
     from opengpc_tpu.pyramid import _dedup_unpack, _pack_params, downscale2
 
     if set(mesh.axis_names) != {DATA_AXIS, ROWS_AXIS}:
@@ -938,8 +824,6 @@ def build_batched_sharded_frame_pyramid(forest_or_mask,
         if isinstance(forest_or_mask, Forest)
         else forest_or_mask
     )
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
     if not settings.epipolar_mode:
         raise ValueError("the sharded pyramid is epipolar-only")
     n_rows = mesh.shape[ROWS_AXIS]
@@ -985,24 +869,10 @@ def build_batched_sharded_frame_pyramid(forest_or_mask,
             y0 = my * shl
             hl = with_halo(l_s)
             hr = with_halo(r_s)
-            if use_pallas:
-                def keyf(ab, y0=y0, wl=wl, h_l=h_l):
-                    a, b = ab
-                    return jnp.concatenate([
-                        fused_keys_slab(a, mask,
-                                        settings.gradient_threshold,
-                                        0, SENTINEL_BASE, y0, h_l),
-                        fused_keys_slab(b, mask,
-                                        settings.gradient_threshold,
-                                        wl, SENTINEL_BASE, y0, h_l),
-                    ], axis=1)
-
-                kimg = jax.lax.map(keyf, (hl, hr))
-            else:
-                kimg = jax.vmap(
-                    lambda a, b, y0=y0, h_l=h_l: _key_image_jnp_slab(
-                        a, b, mask, settings, y0, h_l)
-                )(hl, hr)
+            kimg = jax.vmap(
+                lambda a, b, y0=y0, h_l=h_l: _key_image_jnp_slab(
+                    a, b, mask, settings, y0, h_l)
+            )(hl, hr)
             (xs, ds), counts = match_epipolar_rows(
                 None, None, None, None, settings.disp_high,
                 key=kimg.reshape(bl * shl, 2 * wl),
@@ -1062,7 +932,7 @@ def sharded_train_fern(
 ):
     """Train one fern with the triplet axis sharded over the mesh.
 
-    Each level's TP/FP/FN count reduction becomes an XLA psum over ICI;
+    Each level's TP/FP/FN count reduction becomes an XLA psum;
     everything else is per-shard local.  Selection semantics are identical
     to the single-device trainer (integer counts are exact regardless of
     sharding)."""
@@ -1113,7 +983,7 @@ def sharded_sparsematch_step(n_devices: int) -> None:
     assert all(int(c) > 0 for c in np.asarray(count)), "no matches in dryrun"
 
     # the flagship ROW-FORM contract, sharded over the same mesh (driver
-    # exercises the maximum-throughput path multi-device, VERDICT r2 #8)
+    # exercises the maximum-throughput path multi-device)
     run_rows = build_batched_sparsematch_rows(forest, settings, mesh)
     (rxs, rds), rcounts = run_rows(lefts, rights)
     rcounts.block_until_ready()
@@ -1181,8 +1051,7 @@ def sharded_sparsematch_step(n_devices: int) -> None:
     assert fbuf.shape == (fh, 2 * fw) and fcounts.shape == (fh,)
     from opengpc_tpu.infer import build_sparsematch_masked
 
-    wbuf, wcounts = build_sparsematch_masked(forest, settings,
-                                             use_pallas=False)(fl, fr)
+    wbuf, wcounts = build_sparsematch_masked(forest, settings)(fl, fr)
     assert (np.asarray(fcounts) == np.asarray(wcounts)).all(), (
         "sharded-frame row counts != whole-frame masked counts"
     )
@@ -1215,7 +1084,7 @@ def sharded_sparsematch_step(n_devices: int) -> None:
         np.asarray(gx), np.asarray(gy), np.asarray(gd),
         np.asarray(gfcounts))))
     (wgx, wgy, wgd), wgcounts = build_sparsematch_global_rows(
-        forest, gsettings, use_pallas=False)(fl, fr)
+        forest, gsettings)(fl, fr)
     wantg = set(map(tuple, global_row_supports_to_numpy(
         np.asarray(wgx), np.asarray(wgy), np.asarray(wgd),
         np.asarray(wgcounts))))
@@ -1236,8 +1105,7 @@ def sharded_sparsematch_step(n_devices: int) -> None:
                                           num_levels=2)
     pout = run_pyr(pl, pr)
     pout[4].block_until_ready()
-    wout = build_pyramid_sparsematch(forest, settings, num_levels=2,
-                                     use_pallas=False)(pl, pr)
+    wout = build_pyramid_sparsematch(forest, settings, num_levels=2)(pl, pr)
     assert (np.asarray(pout[4]) == np.asarray(wout[4])).all(), (
         "sharded pyramid per-level counts != single-device pyramid")
     gotp = set(map(tuple, pyramid_supports_to_numpy(*pout).tolist()))
@@ -1258,7 +1126,7 @@ def sharded_sparsematch_step(n_devices: int) -> None:
         b2buf, b2counts = run_2d(bl2, br2)
         b2counts.block_until_ready()
         assert b2buf.shape == (2, bh2, 2 * fw)
-        whole = build_sparsematch_masked(forest, settings, use_pallas=False)
+        whole = build_sparsematch_masked(forest, settings)
         for bi in range(2):
             w2buf, w2counts = whole(bl2[bi], br2[bi])
             assert (np.asarray(b2counts[bi]) == np.asarray(w2counts)).all(), (
@@ -1276,8 +1144,7 @@ def sharded_sparsematch_step(n_devices: int) -> None:
         p2out = run_2dp(pl2, pr2)
         p2out[4].block_until_ready()
         single_pyr = build_pyramid_sparsematch(forest, settings,
-                                               num_levels=2,
-                                               use_pallas=False)
+                                               num_levels=2)
         for bi in range(2):
             sp = single_pyr(pl2[bi], pr2[bi])
             assert (np.asarray(p2out[4])[bi] == np.asarray(sp[4])).all(), (

@@ -30,10 +30,9 @@ def downscale2(img: jnp.ndarray) -> jnp.ndarray:
     """(..., H, W) uint8 -> (..., H//2, W//2) uint8 by 2x2 mean (floor);
     leading axes (a batch) pass through.
 
-    Implemented with ``lax.reduce_window`` — the strided-slice formulation
-    (``x[0::2, 0::2] + ...``) costs 4.8 ms/image on v5e (lane-dim stride-2
-    slices lower to cross-lane data movement) vs 0.018 ms for the window
-    reduction (267x; measured, see README roofline ledger)."""
+    Implemented with ``lax.reduce_window`` rather than strided slices
+    (``x[0::2, 0::2] + ...``): one windowed reduction instead of four
+    strided gathers."""
     h, w = img.shape[-2], img.shape[-1]
     h2, w2 = h // 2, w // 2
     window = (1,) * (img.ndim - 2) + (2, 2)
@@ -75,11 +74,11 @@ def _dedup_unpack(key_c, mult, nbd, w0, disp_high, num_levels):
 
 def _pyramid_rows_impl(left, right, mask: FilterMask,
                        settings: InferenceSettings, num_levels: int,
-                       use_pallas: bool, mult: int, nbd: int):
+                       mult: int, nbd: int):
     """Fast pyramid: every level rides the ROW-FORM matcher (no per-level
     flat compaction — the costliest stage of the flat pipeline), and the
     per-row buffers convert straight into the packed dedup keys.  Output
-    contract identical to the flat path with dedup=True (VERDICT r2 #3)."""
+    contract identical to the flat path with dedup=True."""
     from opengpc_tpu.infer import _sparsematch_rows_impl
 
     h0, w0 = left.shape
@@ -88,7 +87,7 @@ def _pyramid_rows_impl(left, right, mask: FilterMask,
     l_img, r_img = left, right
     for level in range(num_levels):
         (xs, ds), counts = _sparsematch_rows_impl(
-            l_img, r_img, mask=mask, settings=settings, use_pallas=use_pallas
+            l_img, r_img, mask=mask, settings=settings
         )
         hl, wl = l_img.shape
         scale = 1 << level
@@ -109,7 +108,7 @@ def _pyramid_rows_impl(left, right, mask: FilterMask,
 
 def _pyramid_batched_keys(lefts, rights, mask: FilterMask,
                           settings: InferenceSettings, num_levels: int,
-                          use_pallas: bool, mult: int, nbd: int):
+                          mult: int, nbd: int):
     """(B, K) packed finest-wins dedup keys for a batch of pairs, with
     every level's matcher work folded into ONE (B*hs, 2W_l) segmented row
     sort (infer._sparsematch_rows_batched_impl's fold, per level).
@@ -127,8 +126,7 @@ def _pyramid_batched_keys(lefts, rights, mask: FilterMask,
     l_imgs, r_imgs = lefts, rights
     for level in range(num_levels):
         hl, wl = l_imgs.shape[-2:]
-        kimg = _batched_key_images(l_imgs, r_imgs, mask, settings,
-                                   use_pallas)
+        kimg = _batched_key_images(l_imgs, r_imgs, mask, settings)
         kimg, m = _interior_rows(kimg)
         hs = hl - 2 * m
         (xs, ds), counts = match_epipolar_rows(
@@ -155,23 +153,20 @@ def _pyramid_batched_keys(lefts, rights, mask: FilterMask,
 
 def _pyramid_rows_batched_impl(lefts, rights, mask: FilterMask,
                                settings: InferenceSettings, num_levels: int,
-                               use_pallas: bool, mult: int, nbd: int,
+                               mult: int, nbd: int,
                                map_dedup: bool = True):
-    """Batched fast pyramid that AGGREGATES (VERDICT r4 next #2a): at each
+    """Batched fast pyramid that AGGREGATES: at each
     level the B pairs' key images stack into ONE (B*hs, 2W_l) segmented
     row sort — no lax.map of B sequential pyramids.  Rows are independent
     in the epipolar matcher, so per-pair outputs are identical to
     single-pair runs (set equality pinned in tests/test_pyramid.py).
 
-    ``map_dedup`` (the ADOPTED default — on-chip B=4: hybrid 5.055 ms
-    vs 5.233 lax.map-of-pyramids vs 6.922 full fold,
-    experiments/exp_pyr_batch2.py): the final finest-wins dedup runs as
-    B sequential per-pair sorts under ``lax.map`` — folding it into one
-    (B, K~574k) segmented sort instead (``map_dedup=False``) loses 1.33x
-    on TPU, the same batched-big-sort pathology as the vmap'd global
-    sort dead end (README ledger), despite winning 5x on CPU."""
+    ``map_dedup`` (the default): the final finest-wins dedup runs as B
+    sequential per-pair sorts under ``lax.map``; ``map_dedup=False`` folds
+    it into one (B, K~574k) segmented sort instead (5x faster on the CPU;
+    not yet measured on the GPU, ROADMAP Speed 5)."""
     keys = _pyramid_batched_keys(lefts, rights, mask, settings, num_levels,
-                                 use_pallas, mult, nbd)
+                                 mult, nbd)
     w0 = lefts.shape[-1]
     if map_dedup:
         return jax.lax.map(
@@ -183,14 +178,10 @@ def _pyramid_rows_batched_impl(lefts, rights, mask: FilterMask,
 
 def _pyramid_compact_impl(left, right, mask: FilterMask,
                           settings: InferenceSettings, num_levels: int,
-                          use_pallas: bool, mult: int, nbd: int,
-                          chunk: int, k: int):
+                          mult: int, nbd: int, chunk: int, k: int):
     """Low-density fast pyramid: every level rides the CHUNK-COMPACTED
     masked matcher (match_epipolar_masked_compact) — no per-level pack
-    sort AND W-width dedup keys, the best of both prior variants
-    (measured +26% over the rows pyramid at 15% candidate density,
-    experiments/exp_pyr.py; the masked-window variant loses by doubling
-    the dedup sort — README dead-end ledger).  The per-level masked
+    sort AND W-width dedup keys.  The per-level masked
     buffers convert elementwise into the packed finest-wins dedup keys:
     buf's low ``bd`` bits already hold d + disp_high, so they OR straight
     into the dedup key's disparity field.
@@ -199,7 +190,7 @@ def _pyramid_compact_impl(left, right, mask: FilterMask,
     returned ``overflow`` flag is False; any level's chunk exceeding
     ``k`` candidates sets it and the caller MUST re-run the rows pyramid
     (dense frames — the 79%-density bench scene trips it)."""
-    from opengpc_tpu.infer import _interior_rows, _key_image
+    from opengpc_tpu.infer import _interior_rows, _key_image_jnp
     from opengpc_tpu.match import (MASKED_SENTINEL,
                                    match_epipolar_masked_compact)
 
@@ -215,8 +206,7 @@ def _pyramid_compact_impl(left, right, mask: FilterMask,
     ovf = jnp.bool_(False)
     l_img, r_img = left, right
     for level in range(num_levels):
-        key, m = _interior_rows(
-            _key_image(l_img, r_img, mask, settings, use_pallas))
+        key, m = _interior_rows(_key_image_jnp(l_img, r_img, mask, settings))
         buf, _counts, o = match_epipolar_masked_compact(
             key, disp_high, chunk, k, num_tests=mask.num_tests)
         ovf = ovf | o
@@ -265,8 +255,8 @@ def _rows_eligible(mask: FilterMask, settings: InferenceSettings,
 
 def _pyramid_compact_batched_impl(lefts, rights, mask: FilterMask,
                                   settings: InferenceSettings,
-                                  num_levels: int, use_pallas: bool,
-                                  mult: int, nbd: int, chunk, k):
+                                  num_levels: int, mult: int, nbd: int,
+                                  chunk, k):
     """Batched chunk-compacted pyramid (r5): every level's compacted
     matcher folds the batch into one (B*hs, 2W_l) call — the same native
     fold the flat masked-compact contract uses — and the finest-wins
@@ -290,8 +280,7 @@ def _pyramid_compact_batched_impl(lefts, rights, mask: FilterMask,
     l_imgs, r_imgs = lefts, rights
     for level in range(num_levels):
         hl, wl = l_imgs.shape[-2:]
-        kimg = _batched_key_images(l_imgs, r_imgs, mask, settings,
-                                   use_pallas)
+        kimg = _batched_key_images(l_imgs, r_imgs, mask, settings)
         kimg, m = _interior_rows(kimg)
         hs = hl - 2 * m
         buf, _counts, o = match_epipolar_masked_compact(
@@ -320,7 +309,7 @@ def _pyramid_compact_batched_impl(lefts, rights, mask: FilterMask,
 
 
 def _pyramid_impl(left, right, mask: FilterMask, settings: InferenceSettings,
-                  num_levels: int, use_pallas: bool, dedup: bool):
+                  num_levels: int, dedup: bool):
     import dataclasses
 
     h0, w0 = left.shape
@@ -328,7 +317,7 @@ def _pyramid_impl(left, right, mask: FilterMask, settings: InferenceSettings,
         el = _rows_eligible(mask, settings, h0, w0, num_levels)
         if el is not None:
             return _pyramid_rows_impl(left, right, mask, settings,
-                                      num_levels, use_pallas, *el)
+                                      num_levels, *el)
 
     xs_all, ys_all, ds_all, lv_all = [], [], [], []
     l_img, r_img = left, right
@@ -350,8 +339,7 @@ def _pyramid_impl(left, right, mask: FilterMask, settings: InferenceSettings,
             capacity=pix if dedup else min(settings.capacity, pix),
         )
         xs, ys, ds, count = _sparsematch_impl(
-            l_img, r_img, mask=mask, settings=lvl_settings,
-            use_pallas=use_pallas
+            l_img, r_img, mask=mask, settings=lvl_settings
         )
         scale = 1 << level
         xs_all.append(xs.astype(jnp.int32) * scale)
@@ -380,11 +368,9 @@ def _pyramid_impl(left, right, mask: FilterMask, settings: InferenceSettings,
         # lowest-level support per pixel.
         #
         # Implementation: pack (pixel, level, unscaled d) into ONE int32
-        # sort key and emit the buffers in sorted order.  Both halves
-        # matter on v5e (measured, experiments/exp_dedup.py): un-sorting
-        # via gather/scatter costs ~11 ms/1.5M elements, and every extra
-        # sort operand is real comparator work — the packed 1-operand flat
-        # sort is ~0.4 ms.  The unscaled |d| <= disp_high fits the low
+        # sort key and emit the buffers in sorted order: no gather/scatter
+        # to un-sort, and one sort operand (every extra operand is real
+        # comparator work).  The unscaled |d| <= disp_high fits the low
         # bits regardless of pyramid depth; x/y/level unpack from the key.
         mult = 1
         while mult < num_levels:
@@ -441,7 +427,6 @@ def build_pyramid_sparsematch(
     forest_or_mask,
     settings: InferenceSettings,
     num_levels: int = 3,
-    use_pallas: Optional[bool] = None,
     dedup: bool = True,
 ) -> Callable:
     """Jitted ``(left, right) -> (x, y, d, level, counts)`` pyramid matcher.
@@ -455,8 +440,7 @@ def build_pyramid_sparsematch(
 
     With dedup on eligible settings (epipolar, <=30-test forest, packable
     keys) every level rides the row-form matcher — LOSSLESS regardless of
-    ``settings.capacity`` and ~skips the per-level flat compaction sorts
-    (measured in experiments/exp_global.py's pyramid entry / BENCH_r03).
+    ``settings.capacity`` and skips the per-level flat compaction sorts.
     The dedup non-eligible fallback (global mode / unpackable keys) is
     ALSO lossless: each level's flat buffer is sized at its
     one-support-per-source-pixel bound, so ``capacity`` never trims it
@@ -468,11 +452,9 @@ def build_pyramid_sparsematch(
         if isinstance(forest_or_mask, Forest)
         else forest_or_mask
     )
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
     fn = functools.partial(
         _pyramid_impl, mask=mask, settings=settings,
-        num_levels=num_levels, use_pallas=use_pallas, dedup=dedup,
+        num_levels=num_levels, dedup=dedup,
     )
 
     @jax.jit
@@ -482,14 +464,11 @@ def build_pyramid_sparsematch(
                 el = _rows_eligible(mask, settings, left.shape[1],
                                     left.shape[2], num_levels)
                 if el is not None:
-                    # batched FOLD: per-level (B*hs, 2W_l) row sorts + one
-                    # (B, K) dedup sort — no lax.map of B pyramids
-                    # (VERDICT r4 #2a; A/B in experiments/exp_pyr_batch.py)
+                    # batched FOLD: per-level (B*hs, 2W_l) row sorts +
+                    # per-pair dedup — no lax.map of B pyramids
                     return _pyramid_rows_batched_impl(
-                        left, right, mask, settings, num_levels,
-                        use_pallas, *el)
-            # lax.map for the same reason as build_sparsematch: batched
-            # flat sorts are pathological under vmap on TPU
+                        left, right, mask, settings, num_levels, *el)
+            # lax.map for the same reason as build_sparsematch
             return jax.lax.map(lambda ab: fn(*ab), (left, right))
         return fn(left, right)
 
@@ -500,15 +479,13 @@ def build_pyramid_sparsematch_compact(
     forest_or_mask,
     settings: InferenceSettings,
     num_levels: int = 3,
-    use_pallas: Optional[bool] = None,
     chunk: Optional[int] = None,
     k: Optional[int] = None,
 ) -> Callable:
     """Jitted ``(left, right) -> (x, y, d, level, counts, overflow)``
     LOW-DENSITY pyramid matcher: every level rides the chunk-compacted
-    masked matcher (VERDICT r3 item 2's adoption, lifted to the pyramid —
-    measured +26% over :func:`build_pyramid_sparsematch` at realistic
-    ~15% candidate density, experiments/exp_pyr.py).
+    masked matcher (the masked-compact contract lifted to the pyramid, for
+    realistic ~15% candidate density).
 
     Same output contract and finest-level-wins dedup as
     ``build_pyramid_sparsematch(dedup=True)`` plus a trailing ``overflow``
@@ -531,8 +508,6 @@ def build_pyramid_sparsematch_compact(
         if isinstance(forest_or_mask, Forest)
         else forest_or_mask
     )
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
     if settings.disp_high < 1:
         raise ValueError("compact pyramid needs disp_high >= 1")
 
@@ -549,8 +524,7 @@ def build_pyramid_sparsematch_compact(
                 "build_pyramid_sparsematch instead"
             )
         return _pyramid_compact_impl(
-            left, right, mask, settings, num_levels, use_pallas,
-            *el, chunk, k)
+            left, right, mask, settings, num_levels, *el, chunk, k)
 
     @jax.jit
     def run(left, right):
@@ -562,8 +536,7 @@ def build_pyramid_sparsematch_compact(
                                 left.shape[2], num_levels)
             if el is not None:
                 return _pyramid_compact_batched_impl(
-                    left, right, mask, settings, num_levels,
-                    use_pallas, *el, chunk, k)
+                    left, right, mask, settings, num_levels, *el, chunk, k)
             return jax.lax.map(lambda ab: fn(*ab), (left, right))
         return fn(left, right)
 

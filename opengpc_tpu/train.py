@@ -1,6 +1,6 @@
 """Vectorized greedy fern-forest training.
 
-TPU-first recast of the reference trainer
+Data-parallel recast of the reference trainer
 (/root/reference/lib/gpc/Fern.hpp:209-393, training.hpp:87-160): instead of
 re-walking all N triplets once per candidate test (O(N * depth) scalar loop
 per candidate, Fern.hpp:341-350), one device pass scores a whole level's
@@ -287,7 +287,7 @@ def train_fern(
 
     ``mesh``: optional ``jax.sharding.Mesh`` with a "data" axis — the
     triplet axis is sharded over it and XLA turns the per-level count
-    reductions into psums over ICI (data parallelism over triplets, the
+    reductions into psums (data parallelism over triplets, the
     training analog of the reference's row-partitioned threads).
     """
     if candidates is None:
@@ -519,8 +519,7 @@ def _train_forest_batched(
             )
         if verbose:
             # liveness line per level: the fern-major tables only print at
-            # the end, and through the relay a level can take tens of
-            # seconds — silence would look like the documented relay hangs
+            # the end, and a large level can take seconds
             print(f"level {level + 1}/{max_depth}: all {f} ferns scored "
                   f"(t=+{time.perf_counter() - t0:.2f} s)", flush=True)
     elapsed = time.perf_counter() - t0

@@ -2,7 +2,7 @@
 
 Python equivalents of the reference's small structs
 (/root/reference/lib/gpc/buffer.hpp:41-139).  The device pipelines use
-plain arrays (struct-of-arrays is the TPU-native layout); these types are
+plain arrays (struct-of-arrays, the device-native layout); these types are
 the host-side API surface and interop helpers.
 
 The reference's ``ConfidentSupport``/``InvalidMatch``/``Triangle``/

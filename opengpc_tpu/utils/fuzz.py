@@ -1,6 +1,5 @@
-"""Randomized-input generators shared by the oracle-differential fuzz
-tests (tests/test_parity.py) and the on-TPU parity sweeps
-(experiments/exp_tpu_fuzz.py)."""
+"""Randomized-input generators for the oracle-differential fuzz tests
+(tests/test_parity.py)."""
 
 from __future__ import annotations
 

@@ -8,7 +8,7 @@ ground-truth disparity:
   must hit the single true d); good for throughput smoke gates.
 - :func:`make_scene` — textured multi-plane scene with three disparity
   layers and a proper left-indexed occlusion map; a matcher that only works
-  for constant-disparity inputs fails its gate (VERDICT r1 weakness 5).
+  for constant-disparity inputs fails its gate.
 """
 
 import numpy as np
@@ -34,7 +34,7 @@ def make_sparse_pair(h, w, d, density=0.15, seed=42, patch=24):
     (sub-threshold gradient) background with sharp texture patches covering
     roughly ``density`` of the area — the kind of frame gradientThreshold 5
     actually produces on real footage (~10-20% of pixels pass), unlike
-    :func:`make_pair`'s ~79%-dense texture (VERDICT r3 weak #2).
+    :func:`make_pair`'s ~79%-dense texture.
 
     The smooth background is a heavily blurred low-contrast field (its
     sobel response stays under the threshold); texture patches are the

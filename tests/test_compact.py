@@ -1,7 +1,6 @@
 """Unit tests for the sort-based compaction primitives (match.compact,
 match.compact_packed, match._row_pack) — the output-materialization core
-every matcher now goes through (scatter compaction was 10-35x slower on
-TPU; see README roofline ledger)."""
+every matcher now goes through (sort-based instead of cumsum+scatter)."""
 
 import numpy as np
 import pytest

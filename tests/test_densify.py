@@ -95,8 +95,7 @@ def test_densify_from_masked_equals_host_path():
                                  disp_high=32, epipolar_mode=True,
                                  capacity=1 << 16)
     left, right, _, _ = make_scene(np.random.default_rng(31), 160, 320)
-    buf, counts = build_sparsematch_masked(forest, settings,
-                                           use_pallas=False)(left, right)
+    buf, counts = build_sparsematch_masked(forest, settings)(left, right)
     supp = masked_supports_to_numpy(buf, counts, settings.disp_high)
     assert len(supp) > 500
     want_d, want_f = densify_supports(supp, left.shape, num_iters=24)

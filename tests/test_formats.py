@@ -402,10 +402,8 @@ def test_truncate_forest_tau_prefix_type_corner():
                                  vertical_tolerance=0, disp_high=16,
                                  capacity=4096)
     left, right = make_pair(64, 96, 3, seed=5)
-    a = supports_to_numpy(*build_sparsematch(m_full_rule, settings,
-                                             use_pallas=False)(left, right))
-    b = supports_to_numpy(*build_sparsematch(m_trunc, settings,
-                                             use_pallas=False)(left, right))
+    a = supports_to_numpy(*build_sparsematch(m_full_rule, settings)(left, right))
+    b = supports_to_numpy(*build_sparsematch(m_trunc, settings)(left, right))
     assert set(map(tuple, a.tolist())) == set(map(tuple, b.tolist()))
     assert len(a) > 0
 

@@ -173,7 +173,7 @@ class TestSingleOperandPackedSort:
 
         from opengpc_tpu.config import InferenceSettings
         from opengpc_tpu.forest import load_forest, make_filter_mask
-        from opengpc_tpu.infer import _key_image
+        from opengpc_tpu.infer import _key_image_jnp
         from opengpc_tpu.match import (_pack_ok, match_epipolar_masked,
                                        match_epipolar_masked_compact)
 
@@ -190,7 +190,7 @@ class TestSingleOperandPackedSort:
         h, w = 96, 160
         left = rng.integers(0, 256, (h, w)).astype(np.uint8)
         right = np.roll(left, -4, axis=1)
-        key = _key_image(left, right, mask, settings, use_pallas=False)
+        key = _key_image_jnp(left, right, mask, settings)
         assert _pack_ok(n_tests, 2 * w)
 
         b1, c1 = match_epipolar_masked(None, None, None, None,

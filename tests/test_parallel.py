@@ -205,7 +205,7 @@ def test_multiprocess_mesh_e2e(tmp_path):
     """Simulated multi-HOST run: two separate processes (2 virtual CPU
     devices each) form one 4-device mesh via parallel.init_distributed
     (coordinator + cross-process collectives — the single-machine analog
-    of the DCN multi-host story).  The sharded batched matcher must
+    of a multi-host mesh).  The sharded batched matcher must
     produce per-shard supports identical to single-device runs in BOTH
     processes (each validates its local shards).  Also ships an AOT
     sharded-frame artifact exported HERE (a third, single-process "host")
@@ -231,7 +231,7 @@ def test_multiprocess_mesh_e2e(tmp_path):
     art = str(tmp_path / "pod.ogpcx")
     blob = export_sharded_frame(forest, settings, (64, 96),
                                 make_mesh(jax.devices()[:4]),
-                                contract="masked", use_pallas=False)
+                                contract="masked")
     save_artifact(art, blob, contract="masked", settings=settings,
                   shape=(64, 96), extra={"n_devices": 4})
 
@@ -290,10 +290,9 @@ def test_sharded_frame_masked_matches_single_device():
     left, right = _frame_pair(21, h, w)
 
     mesh = make_mesh()
-    sharded = build_sharded_frame_sparsematch(forest, settings, mesh,
-                                              use_pallas=False)
+    sharded = build_sharded_frame_sparsematch(forest, settings, mesh)
     buf, counts = sharded(left, right)
-    single = build_sparsematch_masked(forest, settings, use_pallas=False)
+    single = build_sparsematch_masked(forest, settings)
     sbuf, scounts = single(left, right)
     assert int(np.asarray(counts).sum()) > 50
     np.testing.assert_array_equal(np.asarray(counts), np.asarray(scounts))
@@ -320,10 +319,9 @@ def test_sharded_frame_rows_matches_single_device():
 
     mesh = make_mesh()
     sharded = build_sharded_frame_sparsematch(forest, settings, mesh,
-                                              use_pallas=False,
                                               contract="rows")
     (xs, ds), counts = sharded(left, right)
-    single = build_sparsematch_rows(forest, settings, use_pallas=False)
+    single = build_sparsematch_rows(forest, settings)
     (sxs, sds), scounts = single(left, right)
     assert int(np.asarray(counts).sum()) > 20
     np.testing.assert_array_equal(np.asarray(counts), np.asarray(scounts))
@@ -332,8 +330,8 @@ def test_sharded_frame_rows_matches_single_device():
 
 
 def test_sharded_frame_pallas_interpret_matches_jnp():
-    """The Pallas slab-kernel path (interpret mode on CPU) inside
-    shard_map == the jnp slab path == single-device."""
+    """The slab key image (infer._key_image_jnp_slab) inside shard_map,
+    at a shape whose shards are not tile-aligned, == single-device."""
     import os
 
     from opengpc_tpu.config import InferenceSettings
@@ -351,10 +349,9 @@ def test_sharded_frame_pallas_interpret_matches_jnp():
     left, right = _frame_pair(23, h, w)
 
     mesh = make_mesh()
-    sharded = build_sharded_frame_sparsematch(forest, settings, mesh,
-                                              use_pallas=True)
+    sharded = build_sharded_frame_sparsematch(forest, settings, mesh)
     buf, counts = sharded(left, right)
-    single = build_sparsematch_masked(forest, settings, use_pallas=False)
+    single = build_sparsematch_masked(forest, settings)
     sbuf, scounts = single(left, right)
     np.testing.assert_array_equal(np.asarray(counts), np.asarray(scounts))
     np.testing.assert_array_equal(np.asarray(buf), np.asarray(sbuf))
@@ -379,16 +376,14 @@ def test_sharded_frame_rejects_bad_inputs():
     with pytest.raises(ValueError, match="contract"):
         build_sharded_frame_sparsematch(forest, settings, mesh,
                                         contract="global")
-    run = build_sharded_frame_sparsematch(forest, settings, mesh,
-                                          use_pallas=False)
+    run = build_sharded_frame_sparsematch(forest, settings, mesh)
     left, right = _frame_pair(24, 100, 64)  # 100 % 8 != 0
     with pytest.raises(ValueError, match="divide"):
         run(left, right)
     gsettings = InferenceSettings(
         gradient_threshold=5, epipolar_mode=False, disp_high=64, capacity=8192
     )
-    grun = build_sharded_frame_sparsematch(forest, gsettings, mesh,
-                                           use_pallas=False)
+    grun = build_sharded_frame_sparsematch(forest, gsettings, mesh)
     l2, r2 = _frame_pair(25, 128, 64)
     with pytest.raises(ValueError, match="epipolar"):
         grun(l2, r2)
@@ -425,10 +420,9 @@ def test_sharded_frame_pyramid_matches_single_device():
     left, right = _frame_pair(41, 224, 96)
     mesh = make_mesh()
     sharded = build_sharded_frame_pyramid(forest, settings, mesh,
-                                          num_levels=2, use_pallas=False)
+                                          num_levels=2)
     out = sharded(left, right)
-    single = build_pyramid_sparsematch(forest, settings, num_levels=2,
-                                       use_pallas=False)(left, right)
+    single = build_pyramid_sparsematch(forest, settings, num_levels=2)(left, right)
     got = set(map(tuple, pyramid_supports_to_numpy(*out).tolist()))
     want = set(map(tuple, pyramid_supports_to_numpy(*single).tolist()))
     assert len(want) > 100
@@ -451,10 +445,9 @@ def test_sharded_frame_pyramid_three_levels_four_devices():
     left, right = _frame_pair(42, 224, 80)
     mesh = make_mesh(jax.devices()[:4])
     sharded = build_sharded_frame_pyramid(forest, settings, mesh,
-                                          num_levels=3, use_pallas=False)
+                                          num_levels=3)
     out = sharded(left, right)
-    single = build_pyramid_sparsematch(forest, settings, num_levels=3,
-                                       use_pallas=False)(left, right)
+    single = build_pyramid_sparsematch(forest, settings, num_levels=3)(left, right)
     got = set(map(tuple, pyramid_supports_to_numpy(*out).tolist()))
     want = set(map(tuple, pyramid_supports_to_numpy(*single).tolist()))
     assert got == want
@@ -462,19 +455,24 @@ def test_sharded_frame_pyramid_three_levels_four_devices():
 
 
 def test_sharded_frame_pyramid_pallas_interpret_matches_jnp():
-    """The Pallas slab-kernel path (interpret mode on CPU) inside the
-    sharded pyramid == the jnp slab path."""
+    """The slab key image inside the sharded pyramid == the single-device
+    pyramid: same per-level counts and support set (buffer order is
+    per-chip, so it is compared as a set)."""
     from opengpc_tpu.parallel import build_sharded_frame_pyramid
+    from opengpc_tpu.pyramid import (build_pyramid_sparsematch,
+                                     pyramid_supports_to_numpy)
 
     forest, settings = _pyramid_forest_settings()
     left, right = _frame_pair(43, 224, 96)
     mesh = make_mesh()
-    a = build_sharded_frame_pyramid(forest, settings, mesh, num_levels=2,
-                                    use_pallas=True)(left, right)
-    b = build_sharded_frame_pyramid(forest, settings, mesh, num_levels=2,
-                                    use_pallas=False)(left, right)
-    for g, x in zip(a, b):
-        np.testing.assert_array_equal(np.asarray(g), np.asarray(x))
+    a = build_sharded_frame_pyramid(forest, settings, mesh,
+                                    num_levels=2)(left, right)
+    b = build_pyramid_sparsematch(forest, settings,
+                                  num_levels=2)(left, right)
+    np.testing.assert_array_equal(np.asarray(a[4]), np.asarray(b[4]))
+    got = set(map(tuple, pyramid_supports_to_numpy(*a).tolist()))
+    want = set(map(tuple, pyramid_supports_to_numpy(*b).tolist()))
+    assert got == want and len(want) > 0
 
 
 def test_sharded_frame_pyramid_rejects_bad_inputs():
@@ -563,10 +561,10 @@ def test_sharded_masked_compact_matches_single_device():
 
     mesh = make_mesh()
     sharded = build_batched_sparsematch_masked_compact(
-        forest, settings, mesh, use_pallas=False)
+        forest, settings, mesh)
     bufs, counts, ovf = sharded(lefts, rights)
     assert not bool(np.asarray(ovf).any())
-    single = build_sparsematch(forest, settings, use_pallas=False)
+    single = build_sparsematch(forest, settings)
     for i in range(b):
         want = set(map(tuple, supports_to_numpy(
             *single(lefts[i], rights[i])).tolist()))
@@ -605,7 +603,7 @@ def test_sharded_global_compact_matches_single_device():
 
     mesh = make_mesh()
     sharded = build_batched_sparsematch_global_compact(
-        forest, settings, mesh, use_pallas=False)
+        forest, settings, mesh)
     (xs, ys, ds), counts, ovf = sharded(lefts, rights)
     ovf = np.asarray(ovf)
     # flags are PER PAIR: the dense pair must flag, most sparse pairs must
@@ -613,7 +611,7 @@ def test_sharded_global_compact_matches_single_device():
     # narrow width), and every unflagged pair must be exact
     assert bool(ovf[-1])
     assert (~ovf[:-1]).sum() >= (b - 1) // 2, ovf
-    single = build_sparsematch(forest, settings, use_pallas=False)
+    single = build_sparsematch(forest, settings)
     checked = 0
     for i in range(b - 1):
         if bool(ovf[i]):
@@ -652,12 +650,10 @@ def test_sharded_frame_masked_compact_matches_single_device():
 
     mesh = make_mesh()
     sharded = build_sharded_frame_sparsematch(forest, settings, mesh,
-                                              use_pallas=False,
                                               contract="masked-compact")
     buf, counts, ovf = sharded(left, right)
     assert not bool(np.asarray(ovf)), "sparse frame must not overflow"
-    single = build_sparsematch_masked_compact(forest, settings,
-                                              use_pallas=False)
+    single = build_sparsematch_masked_compact(forest, settings)
     sbuf, scounts, sovf = single(left, right)
     assert not bool(np.asarray(sovf))
     assert int(np.asarray(counts).sum()) > 50
@@ -729,13 +725,13 @@ def test_batched_sharded_frame_masked_matches_single_device():
     )
     b, h, w = 4, 64, 96
     lefts, rights = _frame_batch(31, b, h, w)
-    single = build_sparsematch_masked(forest, settings, use_pallas=False)
+    single = build_sparsematch_masked(forest, settings)
     sing = [single(lefts[i], rights[i]) for i in range(b)]
 
     for n_data, n_rows in ((2, 4), (4, 2)):
         mesh = make_mesh_2d(n_data, n_rows)
         run = build_batched_sharded_frame_sparsematch(
-            forest, settings, mesh, use_pallas=False)
+            forest, settings, mesh)
         buf, counts = run(lefts, rights)
         assert buf.shape == (b, h, 2 * w) and counts.shape == (b, h)
         total = int(np.asarray(counts).sum())
@@ -770,9 +766,9 @@ def test_batched_sharded_frame_rows_and_compact_match():
     mesh = make_mesh_2d(2, 4)
 
     run_rows = build_batched_sharded_frame_sparsematch(
-        forest, settings, mesh, use_pallas=False, contract="rows")
+        forest, settings, mesh, contract="rows")
     (xs, ds), counts = run_rows(lefts, rights)
-    single_rows = build_sparsematch_rows(forest, settings, use_pallas=False)
+    single_rows = build_sparsematch_rows(forest, settings)
     for i in range(b):
         (sxs, sds), scounts = single_rows(lefts[i], rights[i])
         np.testing.assert_array_equal(np.asarray(counts[i]),
@@ -782,11 +778,10 @@ def test_batched_sharded_frame_rows_and_compact_match():
     assert int(np.asarray(counts).sum()) > 20
 
     run_c = build_batched_sharded_frame_sparsematch(
-        forest, settings, mesh, use_pallas=False, contract="masked-compact")
+        forest, settings, mesh, contract="masked-compact")
     cbuf, ccounts, covf = run_c(lefts, rights)
     assert np.asarray(covf).shape == (2,)
-    single_c = build_sparsematch_masked_compact(forest, settings,
-                                                use_pallas=False)
+    single_c = build_sparsematch_masked_compact(forest, settings)
     for i in range(b):
         sbuf, scounts, sovf = single_c(lefts[i], rights[i])
         if not (bool(np.asarray(covf)[i]) or bool(np.asarray(sovf))):
@@ -813,11 +808,9 @@ def test_batched_sharded_frame_pyramid_matches_single_device():
     lb = np.stack([p[0] for p in pairs])
     rb = np.stack([p[1] for p in pairs])
     run = build_batched_sharded_frame_pyramid(forest, settings, mesh,
-                                              num_levels=2,
-                                              use_pallas=False)
+                                              num_levels=2)
     out = run(lb, rb)
-    single = build_pyramid_sparsematch(forest, settings, num_levels=2,
-                                       use_pallas=False)
+    single = build_pyramid_sparsematch(forest, settings, num_levels=2)
     for b in range(2):
         got = set(map(tuple, pyramid_supports_to_numpy(
             *(np.asarray(o)[b] for o in out)).tolist()))
@@ -834,8 +827,7 @@ def test_batched_sharded_frame_pyramid_matches_single_device():
 
 
 def test_batched_sharded_frame_pallas_interpret_matches_jnp():
-    """Pallas slab-kernel path (interpret on CPU) inside the 2-D shard_map
-    == single-device jnp masked."""
+    """Slab key image inside the 2-D shard_map == single-device masked."""
     import os
 
     from opengpc_tpu.config import InferenceSettings
@@ -853,10 +845,9 @@ def test_batched_sharded_frame_pallas_interpret_matches_jnp():
     b, h, w = 2, 64, 80
     lefts, rights = _frame_batch(51, b, h, w)
     mesh = make_mesh_2d(2, 4)
-    run = build_batched_sharded_frame_sparsematch(
-        forest, settings, mesh, use_pallas=True)
+    run = build_batched_sharded_frame_sparsematch(forest, settings, mesh)
     buf, counts = run(lefts, rights)
-    single = build_sparsematch_masked(forest, settings, use_pallas=False)
+    single = build_sparsematch_masked(forest, settings)
     for i in range(b):
         sbuf, scounts = single(lefts[i], rights[i])
         np.testing.assert_array_equal(np.asarray(counts[i]),
@@ -883,8 +874,7 @@ def test_batched_sharded_frame_rejects_bad_inputs():
     with pytest.raises(ValueError, match="2-D"):
         build_batched_sharded_frame_sparsematch(forest, settings, make_mesh())
     mesh = make_mesh_2d(2, 4)
-    run = build_batched_sharded_frame_sparsematch(forest, settings, mesh,
-                                                  use_pallas=False)
+    run = build_batched_sharded_frame_sparsematch(forest, settings, mesh)
     lefts, rights = _frame_batch(61, 3, 64, 64)  # 3 % 2 != 0
     with pytest.raises(ValueError, match="divide"):
         run(lefts, rights)
@@ -920,11 +910,9 @@ def test_sharded_frame_small_forest_one_op_sort():
     )
     h, w = 128, 96
     left, right = _frame_pair(33, h, w)
-    sharded = build_sharded_frame_sparsematch(mask, settings, make_mesh(),
-                                              use_pallas=False)
+    sharded = build_sharded_frame_sparsematch(mask, settings, make_mesh())
     buf, counts = sharded(left, right)
-    sbuf, scounts = build_sparsematch_masked(mask, settings,
-                                             use_pallas=False)(left, right)
+    sbuf, scounts = build_sparsematch_masked(mask, settings)(left, right)
     assert int(np.asarray(counts).sum()) > 50
     np.testing.assert_array_equal(np.asarray(counts), np.asarray(scounts))
     np.testing.assert_array_equal(np.asarray(buf), np.asarray(sbuf))
@@ -954,14 +942,13 @@ def test_sharded_frame_global_compact_matches_single_device():
     left, right = make_sparse_pair(128, 96, 5, density=0.15, seed=31)
 
     sharded = build_sharded_frame_sparsematch(
-        forest, settings, make_mesh(), use_pallas=False,
+        forest, settings, make_mesh(),
         contract="global-compact")
     (xs, ys, ds), counts, ovf = sharded(left, right)
     assert not bool(np.asarray(ovf))
     got = set(map(tuple, global_row_supports_to_numpy(xs, ys, ds, counts)))
 
-    single = build_sparsematch_global_rows(forest, settings,
-                                           use_pallas=False)
+    single = build_sparsematch_global_rows(forest, settings)
     (sxs, sys_, sds), scounts = single(left, right)
     want = set(map(tuple,
                    global_row_supports_to_numpy(sxs, sys_, sds, scounts)))
@@ -995,15 +982,14 @@ def test_sharded_frame_global_lossless_and_overflow():
     left, right = _frame_pair(21, 128, 96)  # ~dense kron texture
     mesh = make_mesh()
 
-    single = build_sparsematch_global_rows(forest, settings,
-                                           use_pallas=False)
+    single = build_sparsematch_global_rows(forest, settings)
     (sxs, sys_, sds), scounts = single(left, right)
     want = set(map(tuple,
                    global_row_supports_to_numpy(sxs, sys_, sds, scounts)))
     assert len(want) > 1000
 
     lossless = build_sharded_frame_sparsematch(
-        forest, settings, mesh, use_pallas=False,
+        forest, settings, mesh,
         contract="global-compact", chunk=128, k=128)
     (xs, ys, ds), counts, ovf = lossless(left, right)
     assert not bool(np.asarray(ovf))
@@ -1011,7 +997,7 @@ def test_sharded_frame_global_lossless_and_overflow():
     assert got == want
 
     flagged = build_sharded_frame_sparsematch(
-        forest, settings, mesh, use_pallas=False,
+        forest, settings, mesh,
         contract="global-compact")
     (xs, ys, ds), counts, ovf = flagged(left, right)
     assert bool(np.asarray(ovf))
@@ -1043,7 +1029,7 @@ def test_sharded_frame_global_rejects_epipolar_settings():
         capacity=8192
     )
     run = build_sharded_frame_sparsematch(
-        forest, settings, make_mesh(), use_pallas=False,
+        forest, settings, make_mesh(),
         contract="global-compact")
     left, right = _frame_pair(27, 128, 64)
     with pytest.raises(ValueError, match="global"):
@@ -1112,11 +1098,9 @@ def test_sharded_frame_randomized_fuzz():
         label = (t, n, contract, fname, h, w, sparse)
         if contract == "pyramid":
             out = build_sharded_frame_pyramid(
-                forest, settings, mesh, num_levels=levels,
-                use_pallas=False)(left, right)
+                forest, settings, mesh, num_levels=levels)(left, right)
             single = build_pyramid_sparsematch(
-                forest, settings, num_levels=levels,
-                use_pallas=False)(left, right)
+                forest, settings, num_levels=levels)(left, right)
             got = set(map(tuple, pyramid_supports_to_numpy(*out).tolist()))
             want = set(map(tuple,
                            pyramid_supports_to_numpy(*single).tolist()))
@@ -1127,10 +1111,10 @@ def test_sharded_frame_randomized_fuzz():
             total += len(want)
         elif contract == "masked-compact":
             buf, counts, ovf = build_sharded_frame_sparsematch(
-                forest, settings, mesh, use_pallas=False,
+                forest, settings, mesh,
                 contract=contract)(left, right)
             sbuf, scounts, sovf = build_sparsematch_masked_compact(
-                forest, settings, use_pallas=False)(left, right)
+                forest, settings)(left, right)
             assert bool(np.asarray(ovf)) == bool(np.asarray(sovf)), label
             if not bool(np.asarray(sovf)):
                 np.testing.assert_array_equal(
@@ -1141,12 +1125,12 @@ def test_sharded_frame_randomized_fuzz():
                 total += int(np.asarray(scounts).sum())
         else:
             sharded = build_sharded_frame_sparsematch(
-                forest, settings, mesh, use_pallas=False,
+                forest, settings, mesh,
                 contract=contract)
             if contract == "masked":
                 buf, counts = sharded(left, right)
                 sbuf, scounts = build_sparsematch_masked(
-                    forest, settings, use_pallas=False)(left, right)
+                    forest, settings)(left, right)
                 np.testing.assert_array_equal(
                     np.asarray(counts), np.asarray(scounts),
                     err_msg=str(label))
@@ -1155,7 +1139,7 @@ def test_sharded_frame_randomized_fuzz():
             else:
                 (xs, ds), counts = sharded(left, right)
                 (sxs, sds), scounts = build_sparsematch_rows(
-                    forest, settings, use_pallas=False)(left, right)
+                    forest, settings)(left, right)
                 np.testing.assert_array_equal(
                     np.asarray(counts), np.asarray(scounts),
                     err_msg=str(label))
@@ -1169,8 +1153,8 @@ def test_sharded_frame_randomized_fuzz():
 
 def test_sharded_frame_rejects_non_uint8():
     """The sharded slab path shares the builders' uint8 guard
-    (ops/preprocess.require_u8 via infer._key_image_jnp_slab /
-    ops.fused.fused_keys_slab): a float pair through
+    (ops/preprocess.require_u8 via infer._key_image_jnp_slab): a float
+    pair through
     build_sharded_frame_sparsematch used to truncate to zeros in
     slab.astype(int32) and return an EMPTY support set silently, while
     the single-device builders raised — inconsistent guard coverage."""
@@ -1193,13 +1177,9 @@ def test_sharded_frame_rejects_non_uint8():
     fl = left.astype(np.float32) / 255.0
     fr = right.astype(np.float32) / 255.0
     mesh = make_mesh()
-    # both slab entries: use_pallas=False rides _key_image_jnp_slab,
-    # True rides ops.fused.fused_keys_slab (interpret mode on CPU)
-    for use_pallas in (False, True):
-        sharded = build_sharded_frame_sparsematch(forest, settings, mesh,
-                                                  use_pallas=use_pallas)
-        with pytest.raises(ValueError, match="uint8"):
-            sharded(fl, fr)
-        # uint8 still flows (the guard is dtype-only)
-        buf, counts = sharded(left, right)
-        assert int(np.asarray(counts).sum()) > 0
+    sharded = build_sharded_frame_sparsematch(forest, settings, mesh)
+    with pytest.raises(ValueError, match="uint8"):
+        sharded(fl, fr)
+    # uint8 still flows (the guard is dtype-only)
+    buf, counts = sharded(left, right)
+    assert int(np.asarray(counts).sum()) > 0

@@ -190,7 +190,7 @@ def test_sparsematch_parity_wide_forest(oracle_path, tmp_path, num_tests,
     want = _oracle_supports(
         oracle_path, tmp_path, forest_path, left, right, settings, epipolar
     )
-    match = build_sparsematch(forest, settings, use_pallas=False)
+    match = build_sparsematch(forest, settings)
     got = set(map(tuple, supports_to_numpy(*match(left, right)).tolist()))
     assert got == want
     assert len(want) > 0
@@ -235,7 +235,7 @@ def test_sparsematch_parity_fuzz(oracle_path, tmp_path):
         want = _oracle_supports(oracle_path, tmp_path, forest_path,
                                 left, right, settings, epipolar)
         forest = forest_mod.load_forest(forest_path)
-        match = build_sparsematch(forest, settings, use_pallas=False)
+        match = build_sparsematch(forest, settings)
         got = set(map(tuple, supports_to_numpy(*match(left, right)).tolist()))
         ctx = (f"trial {trial}: {h}x{w} thr={grad_thresh} vt={vert_tol} "
                f"dh={disp_high} epi={epipolar} {forest_file}")
@@ -250,8 +250,7 @@ def test_sparsematch_parity_fuzz(oracle_path, tmp_path):
 
             fmask = forest_mod.make_filter_mask(forest)
             if _rows_ok(fmask, left.shape, settings):
-                rows = build_sparsematch_rows(forest, settings,
-                                              use_pallas=False)
+                rows = build_sparsematch_rows(forest, settings)
                 (xs, ds), counts = rows(left, right)
                 got_r = set(map(tuple, row_supports_to_numpy(
                     xs, ds, counts).tolist()))
@@ -267,7 +266,7 @@ def test_sparsematch_parity_fuzz(oracle_path, tmp_path):
                                                masked_supports_to_numpy)
 
                 buf, counts = build_sparsematch_masked(
-                    forest, settings, use_pallas=False)(left, right)
+                    forest, settings)(left, right)
                 got_m = set(map(tuple, masked_supports_to_numpy(
                     buf, counts, settings.disp_high).tolist()))
                 assert got_m == want, f"masked {ctx}"
@@ -276,7 +275,7 @@ def test_sparsematch_parity_fuzz(oracle_path, tmp_path):
                     build_sparsematch_masked_compact
 
                 cbuf, ccounts, ovf = build_sparsematch_masked_compact(
-                    forest, settings, use_pallas=False)(left, right)
+                    forest, settings)(left, right)
                 if not bool(np.asarray(ovf)):
                     got_c = set(map(tuple, masked_supports_to_numpy(
                         cbuf, ccounts, settings.disp_high).tolist()))
@@ -288,8 +287,7 @@ def test_sparsematch_parity_fuzz(oracle_path, tmp_path):
 
             fmask = forest_mod.make_filter_mask(forest)
             if _global_rows_ok(fmask, left.shape, settings):
-                grows = build_sparsematch_global_rows(forest, settings,
-                                                      use_pallas=False)
+                grows = build_sparsematch_global_rows(forest, settings)
                 (xs, ys, ds), counts = grows(left, right)
                 got_g = set(map(tuple, global_row_supports_to_numpy(
                     xs, ys, ds, counts).tolist()))
@@ -300,7 +298,7 @@ def test_sparsematch_parity_fuzz(oracle_path, tmp_path):
 
                 (cxs, cys, cds), ccounts, ovf = \
                     build_sparsematch_global_compact(
-                        forest, settings, use_pallas=False,
+                        forest, settings,
                         chunk=128, k=64)(left, right)
                 if not bool(np.asarray(ovf)):
                     got_gc = set(map(tuple, global_row_supports_to_numpy(
@@ -330,16 +328,16 @@ def test_fast_contracts_minimal_interior():
     for h in (27, 28, 30):
         left = random_image(rng, h, 64)
         right = np.roll(left, -3, axis=1)
-        flat = build_sparsematch(forest, settings, use_pallas=False)
+        flat = build_sparsematch(forest, settings)
         want = set(map(tuple,
                        supports_to_numpy(*flat(left, right)).tolist()))
         buf, counts = build_sparsematch_masked(
-            forest, settings, use_pallas=False)(left, right)
+            forest, settings)(left, right)
         got_m = set(map(tuple, masked_supports_to_numpy(
             buf, counts, settings.disp_high).tolist()))
         assert got_m == want, f"masked h={h}"
         (xs, ds), rc = build_sparsematch_rows(
-            forest, settings, use_pallas=False)(left, right)
+            forest, settings)(left, right)
         got_r = set(map(tuple,
                         row_supports_to_numpy(xs, ds, rc).tolist()))
         assert got_r == want, f"rows h={h}"
@@ -376,7 +374,7 @@ def test_sparsematch_adversarial_corners(oracle_path, tmp_path):
         sub.mkdir()
         want = _oracle_supports(oracle_path, sub, forest_path, left, right,
                                 s, c["epi"])
-        m = build_sparsematch(forest, s, use_pallas=False)
+        m = build_sparsematch(forest, s)
         got = set(map(tuple, supports_to_numpy(*m(left, right)).tolist()))
         assert got == want, (c, len(got), len(want))
         saw_nonempty = saw_nonempty or len(want) > 0
@@ -387,7 +385,7 @@ def test_sparsematch_adversarial_corners(oracle_path, tmp_path):
         fmask = forest_mod.make_filter_mask(forest)
         if c["epi"] and _rows_ok(fmask, left.shape, s):
             buf, counts = build_sparsematch_masked(
-                forest, s, use_pallas=False)(left, right)
+                forest, s)(left, right)
             got_m = set(map(tuple, masked_supports_to_numpy(
                 buf, counts, s.disp_high).tolist()))
             assert got_m == want, (c, "masked")
@@ -405,7 +403,7 @@ def test_sparsematch_adversarial_corners(oracle_path, tmp_path):
                                capacity=65536)
     want = _oracle_supports(oracle_path, sub, forest_path, left, right,
                             s_full, True)
-    xs, ys, ds, count = build_sparsematch(forest, s, use_pallas=False)(
+    xs, ys, ds, count = build_sparsematch(forest, s)(
         left, right)
     assert int(count) == len(want) > 1
     got = supports_to_numpy(xs, ys, ds, count)
@@ -451,7 +449,7 @@ def test_sparsematch_parity_random_forest_fuzz(oracle_path, tmp_path):
         left, right, _, _ = make_scene(rng, h, w)
         want = _oracle_supports(oracle_path, tmp_path, forest_path,
                                 left, right, settings, epipolar)
-        match = build_sparsematch(forest, settings, use_pallas=False)
+        match = build_sparsematch(forest, settings)
         got = set(map(tuple, supports_to_numpy(*match(left, right)).tolist()))
         ctx = (f"trial {trial}: {n_ferns} ferns/{n_total} tests "
                f"zero={zero} {h}x{w} epi={epipolar}")
@@ -460,7 +458,7 @@ def test_sparsematch_parity_random_forest_fuzz(oracle_path, tmp_path):
         fmask = make_filter_mask(forest)
         if _rows_ok(fmask, left.shape, settings):
             buf, counts = build_sparsematch_masked(
-                forest, settings, use_pallas=False)(left, right)
+                forest, settings)(left, right)
             got_m = set(map(tuple, masked_supports_to_numpy(
                 buf, counts, settings.disp_high).tolist()))
             assert got_m == want, f"masked {ctx}"

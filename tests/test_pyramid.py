@@ -42,9 +42,8 @@ def test_pyramid_level0_equals_plain_matcher():
     forest = load_forest(os.path.join(FORESTS, "defaultZeroForest.txt"))
     settings = InferenceSettings(gradient_threshold=5, epipolar_mode=True,
                                  vertical_tolerance=0, capacity=8192)
-    plain = build_sparsematch(forest, settings, use_pallas=False)
-    pyr = build_pyramid_sparsematch(forest, settings, num_levels=2,
-                                    use_pallas=False)
+    plain = build_sparsematch(forest, settings)
+    pyr = build_pyramid_sparsematch(forest, settings, num_levels=2)
     want = set(map(tuple, supports_to_numpy(*plain(left, right)).tolist()))
     rows = pyramid_supports_to_numpy(*pyr(left, right))
     got0 = set(map(tuple, rows[rows[:, 3] == 0][:, :3].tolist()))
@@ -57,8 +56,7 @@ def test_pyramid_coarse_levels_scale_back():
     forest = load_forest(os.path.join(FORESTS, "defaultZeroForest.txt"))
     settings = InferenceSettings(gradient_threshold=5, epipolar_mode=True,
                                  vertical_tolerance=0, capacity=8192)
-    pyr = build_pyramid_sparsematch(forest, settings, num_levels=3,
-                                    use_pallas=False)
+    pyr = build_pyramid_sparsematch(forest, settings, num_levels=3)
     rows = pyramid_supports_to_numpy(*pyr(left, right))
     for level in (0, 1):
         sel = rows[rows[:, 3] == level]
@@ -77,10 +75,8 @@ def test_pyramid_dedup_finest_wins():
     # lossy raw baseline would make the subset checks vacuous
     settings = InferenceSettings(gradient_threshold=5, epipolar_mode=True,
                                  vertical_tolerance=0, capacity=65536)
-    raw = build_pyramid_sparsematch(forest, settings, num_levels=3,
-                                    use_pallas=False, dedup=False)
-    deduped = build_pyramid_sparsematch(forest, settings, num_levels=3,
-                                        use_pallas=False, dedup=True)
+    raw = build_pyramid_sparsematch(forest, settings, num_levels=3, dedup=False)
+    deduped = build_pyramid_sparsematch(forest, settings, num_levels=3, dedup=True)
     rows_raw = pyramid_supports_to_numpy(*raw(left, right))
     rows = pyramid_supports_to_numpy(*deduped(left, right))
 
@@ -116,8 +112,7 @@ def test_pyramid_batched():
     forest = load_forest(os.path.join(FORESTS, "defaultZeroForest.txt"))
     settings = InferenceSettings(gradient_threshold=5, epipolar_mode=True,
                                  capacity=4096)
-    pyr = build_pyramid_sparsematch(forest, settings, num_levels=2,
-                                    use_pallas=False)
+    pyr = build_pyramid_sparsematch(forest, settings, num_levels=2)
     xs, ys, ds, lv, counts = pyr(lefts, rights)
     assert counts.shape == (2, 2)
     a = pyramid_supports_to_numpy(xs[0], ys[0], ds[0], lv[0], counts[0])
@@ -133,8 +128,7 @@ def test_pyramid_batched_fold_equals_per_pair():
     forest = load_forest(os.path.join(FORESTS, "defaultZeroForest.txt"))
     settings = InferenceSettings(gradient_threshold=5, epipolar_mode=True,
                                  vertical_tolerance=0, capacity=65536)
-    pyr = build_pyramid_sparsematch(forest, settings, num_levels=3,
-                                    use_pallas=False)
+    pyr = build_pyramid_sparsematch(forest, settings, num_levels=3)
     pairs = [make_pair(96, 160, 2 + 3 * b, seed=20 + b) for b in range(3)]
     lefts = np.stack([p[0] for p in pairs])
     rights = np.stack([p[1] for p in pairs])
@@ -155,8 +149,7 @@ def test_pyramid_batched_fold_ineligible_falls_back():
     forest = load_forest(os.path.join(FORESTS, "defaultZeroForest.txt"))
     settings = InferenceSettings(gradient_threshold=5, epipolar_mode=False,
                                  vertical_tolerance=1, capacity=8192)
-    pyr = build_pyramid_sparsematch(forest, settings, num_levels=2,
-                                    use_pallas=False)
+    pyr = build_pyramid_sparsematch(forest, settings, num_levels=2)
     l0, r0 = make_pair(64, 96, 3, seed=31)
     l1, r1 = make_pair(64, 96, 5, seed=32)
     out = pyr(np.stack([l0, l1]), np.stack([r0, r1]))
@@ -180,10 +173,8 @@ def test_pyramid_compact_equals_rows_sparse():
                                  disp_high=32, epipolar_mode=True,
                                  capacity=1 << 16)
     left, right = make_sparse_pair(120, 256, 8, density=0.15)
-    rows = build_pyramid_sparsematch(forest, settings, num_levels=3,
-                                     use_pallas=False)
-    comp = build_pyramid_sparsematch_compact(forest, settings, num_levels=3,
-                                             use_pallas=False)
+    rows = build_pyramid_sparsematch(forest, settings, num_levels=3)
+    comp = build_pyramid_sparsematch_compact(forest, settings, num_levels=3)
     out = comp(left, right)
     assert not bool(np.asarray(out[-1])), "sparse scene must not overflow"
     got = pyramid_supports_to_numpy(*out[:-1])
@@ -201,14 +192,12 @@ def test_pyramid_compact_overflow_and_eligibility():
                                  capacity=1 << 16)
     # ~79%-dense texture: >k candidates per chunk, flag MUST trip
     left, right = make_pair(120, 256, 8, seed=1)
-    comp = build_pyramid_sparsematch_compact(forest, settings, num_levels=2,
-                                             use_pallas=False)
+    comp = build_pyramid_sparsematch_compact(forest, settings, num_levels=2)
     assert bool(np.asarray(comp(left, right)[-1]))
 
     # non-epipolar settings are ineligible (trace-time ValueError)
     bad = build_pyramid_sparsematch_compact(
-        forest, InferenceSettings(epipolar_mode=False, disp_high=32),
-        use_pallas=False)
+        forest, InferenceSettings(epipolar_mode=False, disp_high=32))
     try:
         bad(left, right)
         assert False, "expected ValueError"
@@ -229,8 +218,7 @@ def test_pyramid_compact_batched_fold_equals_per_pair():
                                  vertical_tolerance=0, capacity=65536,
                                  disp_high=32)
     comp = build_pyramid_sparsematch_compact(forest, settings,
-                                             num_levels=2,
-                                             use_pallas=False)
+                                             num_levels=2)
     pairs = [make_sparse_pair(96, 160, 3 + b, density=0.15, seed=40 + b)
              for b in range(3)]
     lb = np.stack([p[0] for p in pairs])

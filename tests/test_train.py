@@ -274,7 +274,7 @@ def test_trained_forest_quality_vs_pretrained():
     results = {}
     for name, forest in (("fresh", fresh), ("pretrained", pre)):
         supp = supports_to_numpy(
-            *build_sparsematch(forest, settings, use_pallas=False)(l2, r2))
+            *build_sparsematch(forest, settings)(l2, r2))
         prec, n = support_precision(supp, gt2, valid=(occ2 == 0), tol=0)
         results[name] = (len(supp), prec)
     n_fresh, p_fresh = results["fresh"]
@@ -325,7 +325,7 @@ def test_tau_trained_forest_quality_vs_pretrained():
     results = {}
     for name, forest in (("fresh", fresh), ("pretrained", pre)):
         supp = supports_to_numpy(
-            *build_sparsematch(forest, settings, use_pallas=False)(l2, r2))
+            *build_sparsematch(forest, settings)(l2, r2))
         prec, n = support_precision(supp, gt2, valid=(occ2 == 0), tol=0)
         results[name] = (len(supp), prec)
     n_fresh, p_fresh = results["fresh"]
@@ -391,8 +391,8 @@ def test_batch_ferns_default_respects_bytes_cap(monkeypatch):
 
 def test_batched_training_verbose_streams_levels(capsys):
     """Batched verbose training must emit a liveness line as each level
-    completes (r4 review finding: buffering everything until the end made
-    an hours-long relayed run indistinguishable from a relay hang)."""
+    completes (buffering everything until the end made an hours-long
+    run indistinguishable from a hang)."""
     rng = np.random.default_rng(31)
     trips = make_triplets(rng, 90)
     train_forest(trips, fern_factory(1, 1, 0, 3),
